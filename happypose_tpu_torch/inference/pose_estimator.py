@@ -1,0 +1,206 @@
+"""MegaPose single-view pose estimation (PyTorch port of the MegaPose branch
+of `happypose_tpu/inference/pose_estimator.py`).
+
+Each detection is replicated over the SO(3) grid with an autodepth init,
+every hypothesis is scored by the coarse classifier, the top-K per
+detection are refined, re-scored, and the best one is kept. The hypothesis
+axis is cut into chunks of `bsz_images` (coarse, scoring) and
+`bsz_objects` (refiner); each chunk is one model call and one render batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from happypose_tpu_torch.inference.types import (
+    DetectionBatch,
+    InferenceConfig,
+    ObservationBatch,
+    PoseEstimateBatch,
+)
+from happypose_tpu_torch.lib3d.pose_init import TCO_init_from_boxes_autodepth_with_R
+from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
+from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
+from happypose_tpu_torch.models.pose_predictor import PosePredictor
+from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
+
+
+class PoseEstimator:
+    """Orchestrates the MegaPose pipeline.
+
+    refiner: pose-update PosePredictor; coarse: hypothesis-classifier
+    PosePredictor (`predict_rendered_views_logits`); assets / meshes: the
+    padded mesh database on the device the pipeline runs on.
+    """
+
+    def __init__(
+        self,
+        refiner: PosePredictor,
+        coarse: PosePredictor,
+        assets: RenderAssets,
+        meshes: BatchedMeshes,
+        cfg: InferenceConfig = InferenceConfig(),
+    ):
+        if not coarse.cfg.predict_rendered_views_logits:
+            raise NotImplementedError(
+                "only the MegaPose flavor (a coarse hypothesis classifier) is ported"
+            )
+        self.refiner_model = refiner
+        self.coarse_model = coarse
+        self.assets = assets
+        self.meshes = meshes
+        self.cfg = cfg
+        self.SO3_grid = torch.from_numpy(load_SO3_grid(cfg.SO3_grid_size)).to(
+            assets.vertices.device
+        )
+
+    # ------------------------------------------------------------------
+    # MegaPose coarse: score detections x SO(3)-grid hypotheses
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def forward_coarse(
+        self, obs: ObservationBatch, detections: DetectionBatch
+    ) -> PoseEstimateBatch:
+        """Replicate each detection over the SO(3) grid, init TCO with
+        autodepth, score every hypothesis with the coarse classifier."""
+        D = detections.n_rows
+        M = self.SO3_grid.shape[0]  # the loaded grid's size
+        dev = self.SO3_grid.device
+        det_idx = torch.arange(D, device=dev).repeat_interleave(M)
+        hyp_ids = torch.arange(M, device=dev).repeat(D)
+        boxes = detections.boxes[det_idx]
+        obj_ids = detections.obj_ids[det_idx]
+        im_ids = detections.batch_im_ids[det_idx]
+        valid = detections.valid[det_idx]
+        R = self.SO3_grid.repeat(D, 1, 1)
+        K = obs.K[im_ids]
+
+        inst = self.meshes.select(obj_ids)
+        TCO_init = TCO_init_from_boxes_autodepth_with_R(
+            boxes, inst.points, K, R, inst.points_mask
+        )
+        logits = self._score_hypotheses(obs, K, obj_ids, im_ids, TCO_init)
+        logits = torch.where(valid, logits, torch.full_like(logits, -torch.inf))
+        return PoseEstimateBatch(
+            poses=TCO_init,
+            K=K,
+            obj_ids=obj_ids,
+            batch_im_ids=im_ids,
+            instance_ids=detections.instance_ids[det_idx],
+            hypothesis_ids=hyp_ids,
+            scores=detections.scores[det_idx],
+            coarse_logits=logits,
+            pose_logits=torch.zeros_like(logits),
+            valid=valid,
+        )
+
+    def _score_hypotheses(self, obs, K, obj_ids, im_ids, TCO) -> torch.Tensor:
+        """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a time."""
+        images = obs.images
+        logits = []
+        for s in range(0, TCO.shape[0], self.cfg.bsz_images):
+            sl = slice(s, s + self.cfg.bsz_images)
+            out = self.coarse_model(
+                images[im_ids[sl]], K[sl], obj_ids[sl], TCO[sl], self.assets,
+                self.meshes.select(obj_ids[sl]), n_iterations=1,
+            )
+            logits.append(out.renderings_logits[0, :, 0])
+        return torch.cat(logits)
+
+    # ------------------------------------------------------------------
+    # Refiner
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def forward_refiner(
+        self, obs: ObservationBatch, estimates: PoseEstimateBatch,
+        n_iterations: Optional[int] = None,
+    ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
+        """Refine all estimates, `bsz_objects` at a time. Returns (final,
+        {"iteration=k": estimates after k iterations})."""
+        n_iterations = n_iterations or self.cfg.n_refiner_iterations
+        images = obs.images
+        chunks = []
+        for s in range(0, estimates.n_rows, self.cfg.bsz_objects):
+            sl = slice(s, s + self.cfg.bsz_objects)
+            obj_ids = estimates.obj_ids[sl]
+            out = self.refiner_model(
+                images[estimates.batch_im_ids[sl]], estimates.K[sl], obj_ids,
+                estimates.poses[sl], self.assets, self.meshes.select(obj_ids),
+                n_iterations=n_iterations,
+            )
+            chunks.append(out.TCO_output)  # [n_iter, chunk, 4, 4]
+        all_iters = torch.cat(chunks, dim=1)
+        per_iter = {
+            f"iteration={it + 1}": dataclasses.replace(estimates, poses=all_iters[it])
+            for it in range(n_iterations)
+        }
+        return per_iter[f"iteration={n_iterations}"], per_iter
+
+    # ------------------------------------------------------------------
+    # Scoring model (re-score refined poses with the coarse classifier)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def forward_scoring(
+        self, obs: ObservationBatch, estimates: PoseEstimateBatch
+    ) -> PoseEstimateBatch:
+        logits = self._score_hypotheses(
+            obs, estimates.K, estimates.obj_ids, estimates.batch_im_ids,
+            estimates.poses,
+        )
+        logits = torch.where(estimates.valid, logits, torch.full_like(logits, -torch.inf))
+        return dataclasses.replace(estimates, pose_logits=logits)
+
+    # ------------------------------------------------------------------
+    # Selection
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def filter_top_k(
+        estimates: PoseEstimateBatch, by: str, k: int
+    ) -> PoseEstimateBatch:
+        """Group-wise top-k (groups = batch_im_id x obj_id x instance_id)."""
+        key = group_keys(
+            estimates.batch_im_ids, estimates.obj_ids, estimates.instance_ids
+        )
+        keep = topk_per_group(key, getattr(estimates, by), estimates.valid, k)
+        return dataclasses.replace(estimates, valid=keep)
+
+    # ------------------------------------------------------------------
+    # Full pipeline
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def run_inference_pipeline(
+        self,
+        obs: ObservationBatch,
+        detections: DetectionBatch,
+        n_refiner_iterations: Optional[int] = None,
+        n_pose_hypotheses: Optional[int] = None,
+    ) -> Dict[str, PoseEstimateBatch]:
+        """Grid scoring -> top-K -> refine -> re-score -> top-1.
+
+        Returns the estimates of every stage: "coarse", "iteration=k",
+        "scored" and "final" (one valid row per detection)."""
+        n_hyp = n_pose_hypotheses or self.cfg.n_pose_hypotheses
+        results: Dict[str, PoseEstimateBatch] = {}
+        coarse = self.forward_coarse(obs, detections)
+        results["coarse"] = coarse
+        kept = self.filter_top_k(coarse, by="coarse_logits", k=n_hyp)
+        # compact to D*n_hyp rows for the refiner, best logits first; the
+        # key and its float32 arithmetic are the JAX pipeline's, and the
+        # stable sort keeps its order among ties
+        key = (~kept.valid).to(torch.float32) * 1e9 - kept.coarse_logits
+        order = torch.argsort(key, stable=True)
+        subset = kept.select(order[: detections.n_rows * n_hyp])
+        refined, per_iter = self.forward_refiner(obs, subset, n_refiner_iterations)
+        results.update(per_iter)
+        scored = self.forward_scoring(obs, refined)
+        results["scored"] = scored
+        results["final"] = self.filter_top_k(scored, by="pose_logits", k=1)
+        return results

@@ -1,0 +1,61 @@
+"""Pinhole camera geometry (PyTorch port of `happypose_tpu/lib3d/camera.py`)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def project_points_robust(
+    points_3d: torch.Tensor, K: torch.Tensor, TCO: torch.Tensor, z_min: float = 0.1
+) -> torch.Tensor:
+    """Project object-frame points [B, P, 3] through TCO [B, 4, 4] and K
+    [B, 3, 3] -> uv [B, P, 2], with depth clamped at `z_min`."""
+    cam_pts = (
+        torch.einsum("bij,bpj->bpi", TCO[:, :3, :3], points_3d)
+        + TCO[:, None, :3, 3]
+    )
+    suv = torch.einsum("bij,bpj->bpi", K, cam_pts)
+    return suv[..., :2] / torch.clamp(suv[..., 2:3], min=z_min)
+
+
+def masked_boxes_from_uv(uv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(xmin, ymin, xmax, ymax) over the valid points of uv [B, P, 2];
+    mask [B, P] bool."""
+    inf = torch.tensor(float("inf"), dtype=uv.dtype, device=uv.device)
+    m = mask[..., None]
+    mins = torch.where(m, uv, inf).amin(dim=1)
+    maxs = torch.where(m, uv, -inf).amax(dim=1)
+    return torch.cat([mins, maxs], dim=-1)
+
+
+def get_K_crop_resize(
+    K: torch.Tensor, boxes: torch.Tensor, crop_resize: Tuple[int, int]
+) -> torch.Tensor:
+    """Intrinsics of the virtual camera after cropping `boxes` [B, 4] and
+    resizing to `crop_resize` (h, w). Same pixel-centre convention as the
+    JAX package: the principal point moves by (box size - 1)/2 during the
+    crop, then scales about the resized image centre."""
+    final_width = float(max(crop_resize))
+    final_height = float(min(crop_resize))
+    crop_w = boxes[:, 2] - boxes[:, 0]
+    crop_h = boxes[:, 3] - boxes[:, 1]
+    crop_cj = (boxes[:, 0] + boxes[:, 2]) / 2
+    crop_ci = (boxes[:, 1] + boxes[:, 3]) / 2
+
+    cx = K[:, 0, 2] + (crop_w - 1) / 2 - crop_cj
+    cy = K[:, 1, 2] + (crop_h - 1) / 2 - crop_ci
+
+    scale_x = final_width / crop_w
+    scale_y = final_height / crop_h
+    fx = scale_x * K[:, 0, 0]
+    fy = scale_y * K[:, 1, 1]
+    cx = (final_width - 1) / 2 + scale_x * (cx - (crop_w - 1) / 2)
+    cy = (final_height - 1) / 2 + scale_y * (cy - (crop_h - 1) / 2)
+
+    zeros = torch.zeros_like(fx)
+    ones = torch.ones_like(fx)
+    return torch.stack(
+        [fx, zeros, cx, zeros, fy, cy, zeros, zeros, ones], dim=-1
+    ).reshape(-1, 3, 3)

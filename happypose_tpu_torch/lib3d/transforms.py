@@ -1,0 +1,53 @@
+"""SE(3) transform ops (PyTorch port of `happypose_tpu/lib3d/transforms.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+from happypose_tpu_torch.lib3d.rotations import rotmat_from_ortho6d
+
+
+def transform_pts(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply rigid transforms to point sets.
+
+    T: [B, 4, 4] or [B, S, 4, 4]; pts: [B, P, 3] -> [B, P, 3] or [B, S, P, 3].
+    """
+    if T.ndim == 4:
+        return (
+            torch.einsum("bsij,bpj->bspi", T[..., :3, :3], pts)
+            + T[..., None, :3, 3]
+        )
+    return torch.einsum("bij,bpj->bpi", T[..., :3, :3], pts) + T[:, None, :3, 3]
+
+
+def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble [..., 4, 4] from R [..., 3, 3] and t [..., 3]."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = bottom.expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def invert_transforms(T: torch.Tensor) -> torch.Tensor:
+    """Invert rigid transforms [..., 4, 4] without a linear solve."""
+    R_inv = T[..., :3, :3].transpose(-1, -2)
+    t_inv = -(R_inv @ T[..., :3, 3:4])[..., 0]
+    return make_T(R_inv, t_inv)
+
+
+def pose9d_to_T(pose9d: torch.Tensor) -> torch.Tensor:
+    """[..., 9] = (ortho6d, txyz) -> [..., 4, 4]."""
+    return make_T(rotmat_from_ortho6d(pose9d[..., :6]), pose9d[..., 6:9])
+
+
+def T_to_pose9d(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 9]: first two columns of R + translation."""
+    return torch.cat([T[..., :3, 0], T[..., :3, 1], T[..., :3, 3]], dim=-1)
+
+
+def normalize_T(T: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize the rotation block via a 9D round-trip."""
+    return pose9d_to_T(T_to_pose9d(T))

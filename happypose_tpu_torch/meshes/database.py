@@ -1,0 +1,212 @@
+"""Padded mesh database — fixed-shape tensors (PyTorch port of
+`happypose_tpu/meshes/database.py`).
+
+Ragged meshes are padded to [n_obj, P, 3] / [n_obj, F, 3] tensors with
+validity masks, so per-label lookups are plain index selects on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from happypose_tpu_torch.meshes.io import Mesh
+
+
+def _resize_texture(tex: np.ndarray, size: int) -> np.ndarray:
+    """Resample a [TH, TW, 3] float texture to [size, size, 3]: bilinear
+    through PIL when it is installed, nearest-neighbour otherwise."""
+    th, tw = tex.shape[:2]
+    if (th, tw) == (size, size):
+        return tex.astype(np.float32)
+    try:
+        from PIL import Image
+    except ImportError:
+        yi = np.linspace(0, th - 1, size).astype(np.int64)
+        xi = np.linspace(0, tw - 1, size).astype(np.int64)
+        return tex[yi][:, xi].astype(np.float32)
+    img = Image.fromarray(np.clip(tex * 255.0, 0, 255).astype(np.uint8))
+    img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, np.float32) / 255.0
+
+
+def _to(obj, device):
+    """Copy of a tensor dataclass with every field moved to `device`."""
+    return dataclasses.replace(
+        obj, **{f.name: getattr(obj, f.name).to(device)
+                for f in dataclasses.fields(obj)}
+    )
+
+
+@dataclass
+class BatchedMeshes:
+    """Fixed-shape per-object point sets, selectable by object id.
+
+    points: [n_obj, P, 3]; points_mask: [n_obj, P] bool (False on padding);
+    diameters: [n_obj].
+    """
+
+    points: torch.Tensor
+    points_mask: torch.Tensor
+    diameters: torch.Tensor
+
+    def select(self, obj_ids: torch.Tensor) -> "BatchedMeshes":
+        return BatchedMeshes(
+            points=self.points[obj_ids],
+            points_mask=self.points_mask[obj_ids],
+            diameters=self.diameters[obj_ids],
+        )
+
+    def to(self, device) -> "BatchedMeshes":
+        return _to(self, device)
+
+
+@dataclass
+class RenderAssets:
+    """Padded triangle soup for the rasterizer.
+
+    vertices [n_obj, V, 3]; faces [n_obj, F, 3] int64 (0-padded);
+    faces_mask [n_obj, F] bool; vertex_colors / vertex_normals [n_obj, V, 3];
+    vertex_uv [n_obj, V, 2]; textures [n_obj, T, T, 3] (1x1 when no object
+    is textured); has_texture [n_obj] bool.
+    """
+
+    vertices: torch.Tensor
+    faces: torch.Tensor
+    faces_mask: torch.Tensor
+    vertex_colors: torch.Tensor
+    vertex_normals: torch.Tensor
+    vertex_uv: torch.Tensor
+    textures: torch.Tensor
+    has_texture: torch.Tensor
+
+    def select(self, obj_ids: torch.Tensor) -> "RenderAssets":
+        # textures are not gathered per instance (that would materialize
+        # [B, T, T, 3]); the renderer samples them with the object id
+        return RenderAssets(
+            vertices=self.vertices[obj_ids],
+            faces=self.faces[obj_ids],
+            faces_mask=self.faces_mask[obj_ids],
+            vertex_colors=self.vertex_colors[obj_ids],
+            vertex_normals=self.vertex_normals[obj_ids],
+            vertex_uv=self.vertex_uv[obj_ids],
+            textures=self.textures,
+            has_texture=self.has_texture[obj_ids],
+        )
+
+    def to(self, device) -> "RenderAssets":
+        return _to(self, device)
+
+
+class MeshDataBase:
+    """Host-side registry of meshes keyed by string label, compiled into
+    fixed-shape tensors. Padding is deterministic (points are cycled)."""
+
+    def __init__(
+        self,
+        meshes: Dict[str, Mesh],
+        scales: Optional[Dict[str, float]] = None,
+    ):
+        self.labels: List[str] = sorted(meshes.keys())
+        self.label_to_id: Dict[str, int] = {l: i for i, l in enumerate(self.labels)}
+        self.meshes = meshes
+        self.scales = scales or {}
+
+    def id_of(self, label: str) -> int:
+        return self.label_to_id[label]
+
+    def batched(self, n_points: int = 2000, device="cpu") -> BatchedMeshes:
+        """Padded point database: `n_points` vertices per object, evenly
+        subsampled, or cycled when the mesh has fewer."""
+        n_obj = len(self.labels)
+        points = np.zeros((n_obj, n_points, 3), np.float32)
+        points_mask = np.zeros((n_obj, n_points), bool)
+        diameters = np.zeros((n_obj,), np.float32)
+        for i, label in enumerate(self.labels):
+            mesh = self.meshes[label]
+            scale = self.scales.get(label, 1.0)
+            v = mesh.vertices * scale
+            if len(v) >= n_points:
+                idx = np.linspace(0, len(v) - 1, n_points).astype(np.int64)
+                pts = v[idx]
+            else:
+                reps = int(np.ceil(n_points / max(len(v), 1)))
+                pts = np.tile(v, (reps, 1))[:n_points]
+            points[i, : len(pts)] = pts
+            points_mask[i, : len(pts)] = True
+            diameters[i] = mesh.diameter * scale
+        return BatchedMeshes(
+            points=torch.from_numpy(points),
+            points_mask=torch.from_numpy(points_mask),
+            diameters=torch.from_numpy(diameters),
+        ).to(device)
+
+    def render_assets(
+        self,
+        n_vertices: Optional[int] = None,
+        n_faces: Optional[int] = None,
+        texture_size: int = 256,
+        device="cpu",
+    ) -> RenderAssets:
+        """Padded triangle-soup tensors for the rasterizer.
+
+        Padding faces are degenerate (all indices 0) and masked. Textured
+        meshes get their images resampled to a common `texture_size` square
+        and are sampled through perspective-correct UVs by the renderer.
+        """
+        n_obj = len(self.labels)
+        if n_vertices is None:
+            n_vertices = max(len(self.meshes[l].vertices) for l in self.labels)
+        if n_faces is None:
+            n_faces = max(len(self.meshes[l].faces) for l in self.labels)
+        any_texture = any(
+            m.texture is not None and m.vertex_uv is not None
+            for m in self.meshes.values()
+        )
+        T = texture_size if any_texture else 1
+
+        V = np.zeros((n_obj, n_vertices, 3), np.float32)
+        F = np.zeros((n_obj, n_faces, 3), np.int64)
+        Fm = np.zeros((n_obj, n_faces), bool)
+        C = np.full((n_obj, n_vertices, 3), 0.5, np.float32)
+        N = np.zeros((n_obj, n_vertices, 3), np.float32)
+        UV = np.zeros((n_obj, n_vertices, 2), np.float32)
+        TEX = np.full((n_obj, T, T, 3), 0.5, np.float32)
+        HT = np.zeros((n_obj,), bool)
+
+        for i, label in enumerate(self.labels):
+            mesh = self.meshes[label]
+            scale = self.scales.get(label, 1.0)
+            nv, nf = len(mesh.vertices), len(mesh.faces)
+            if nv > n_vertices or nf > n_faces:
+                raise ValueError(
+                    f"mesh {label} exceeds padding budget ({nv}>{n_vertices} "
+                    f"or {nf}>{n_faces})"
+                )
+            V[i, :nv] = mesh.vertices * scale
+            F[i, :nf] = mesh.faces
+            Fm[i, :nf] = True
+            if mesh.vertex_colors is not None:
+                C[i, :nv] = mesh.vertex_colors
+            N[i, :nv] = mesh.vertex_normals
+            if mesh.texture is not None and mesh.vertex_uv is not None:
+                # raw UVs: tiled coordinates wrap at sample time (GL_REPEAT)
+                UV[i, :nv] = mesh.vertex_uv
+                TEX[i] = _resize_texture(mesh.texture, T)
+                HT[i] = True
+                C[i, :nv] = mesh.sample_texture_at_uv(mesh.vertex_uv)
+
+        return RenderAssets(
+            vertices=torch.from_numpy(V),
+            faces=torch.from_numpy(F),
+            faces_mask=torch.from_numpy(Fm),
+            vertex_colors=torch.from_numpy(C),
+            vertex_normals=torch.from_numpy(N),
+            vertex_uv=torch.from_numpy(UV),
+            textures=torch.from_numpy(TEX),
+            has_texture=torch.from_numpy(HT),
+        ).to(device)

@@ -1,0 +1,226 @@
+"""Render-and-compare pose predictor (PyTorch port of
+`happypose_tpu/models/pose_predictor.py`).
+
+One iteration: crop the observation around the reprojected model points,
+render the object at the current pose in the crop camera (the hand-written
+CUDA rasterizer for CUDA tensors), run ResNet34 on [crop, rgb render,
+normals render], then either apply the SE(3) update of the pose head
+(refiner) or return the rendered-view logits (MegaPose coarse hypothesis
+classifier). The pose head starts at the identity update, so an untrained
+refiner is a no-op.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from happypose_tpu_torch.lib3d.camera import (
+    get_K_crop_resize,
+    masked_boxes_from_uv,
+    project_points_robust,
+)
+from happypose_tpu_torch.lib3d.cropping import deepim_boxes
+from happypose_tpu_torch.lib3d.multiview_geom import make_TCO_multiview
+from happypose_tpu_torch.lib3d.pose_update import pose_update_with_reference_point
+from happypose_tpu_torch.lib3d.rotations import rotmat_from_ortho6d
+from happypose_tpu_torch.lib3d.transforms import make_T, normalize_T
+from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
+from happypose_tpu_torch.models.backbones import ResNet, ResNet34
+from happypose_tpu_torch.ops.crop_resize import crop_images_matmul
+from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
+
+_IDENTITY_ORTHO6D_POSE = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+
+@dataclass(frozen=True)
+class PosePredictorConfig:
+    """Static model configuration (ResNet34 backbone, ortho6d pose head)."""
+
+    render_size: Tuple[int, int] = (240, 320)
+    multiview_type: str = "TCO"  # TCO | front_1view | front_3views | sphere_26views
+    remove_TCO_rendering: bool = False
+    views_inplane_rotations: bool = False
+    render_normals: bool = True
+    predict_pose_update: bool = True
+    predict_rendered_views_logits: bool = False
+    crop_lamb: float = 1.4
+
+    @property
+    def n_views(self) -> int:
+        if self.multiview_type == "TCO":
+            n = 1
+        else:
+            base = {"front_1view": 1, "front_3views": 3, "front_5views": 5,
+                    "sphere_26views": 26}[self.multiview_type]
+            n = base + (0 if self.remove_TCO_rendering else 1)
+        return n * (4 if self.views_inplane_rotations else 1)
+
+    @property
+    def n_render_channels(self) -> int:
+        return 3 + (3 if self.render_normals else 0)
+
+
+@dataclass
+class PoseOutputs:
+    """Per-iteration outputs, leading axis = iteration."""
+
+    TCO_input: torch.Tensor  # [n_iter, B, 4, 4]
+    TCO_output: torch.Tensor  # [n_iter, B, 4, 4]
+    K_crop: torch.Tensor  # [n_iter, B, 3, 3]
+    boxes_rend: torch.Tensor  # [n_iter, B, 4]
+    boxes_crop: torch.Tensor  # [n_iter, B, 4]
+    tCR: torch.Tensor  # [n_iter, B, 3]
+    pose_raw: torch.Tensor  # [n_iter, B, 9]
+    renderings_logits: torch.Tensor  # [n_iter, B, n_views]
+
+
+class PosePredictor(nn.Module):
+    def __init__(self, cfg: PosePredictorConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = ResNet34(n_inputs=3 + cfg.n_views * cfg.n_render_channels)
+        if cfg.predict_pose_update:
+            self.pose_fc = nn.Linear(ResNet.n_features, 9)
+        if cfg.predict_rendered_views_logits:
+            self.views_logits_head = nn.Linear(ResNet.n_features, cfg.n_views)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "PosePredictor":
+        """Fresh seeded weights: LeCun-normal convolutions and linear layers
+        (the Flax default), unit BatchNorm, and a pose head that predicts the
+        identity update (kernel ~ N(0, 1e-3), identity bias)."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(
+                    torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+        if self.cfg.predict_pose_update:
+            self.pose_fc.weight.copy_(
+                torch.randn(self.pose_fc.weight.shape, generator=generator) * 1e-3
+            )
+            self.pose_fc.bias.copy_(torch.tensor(_IDENTITY_ORTHO6D_POSE))
+        return self
+
+    # ---------- geometry ----------
+
+    def _crop_inputs(self, images, K, TCO, tCR, points, points_mask):
+        """Crop around the reprojected model points, anchored at tCR.
+        Returns (images_crop [B, C, h, w], K_crop, boxes_rend, boxes_crop)."""
+        H, W = images.shape[-2:]
+        uv = project_points_robust(points, K, TCO)
+        boxes_rend = masked_boxes_from_uv(uv, points_mask)
+        TCR = make_T(TCO[:, :3, :3], tCR)
+        center = project_points_robust(torch.zeros_like(points[:, :1]), K, TCR)
+        boxes_crop = deepim_boxes(
+            center, boxes_rend, boxes_rend, lamb=self.cfg.crop_lamb, im_size=(H, W)
+        )
+        images_crop = crop_images_matmul(
+            images, boxes_crop, output_size=self.cfg.render_size, sampling_ratio=4
+        )
+        K_crop = get_K_crop_resize(K, boxes_crop, self.cfg.render_size)
+        return images_crop, K_crop, boxes_rend, boxes_crop
+
+    def _compute_KV_crop(self, im_hw, K, TCV_O, points, points_mask):
+        """Crop intrinsics of every rendered view [B, V, 3, 3]."""
+        B, V = TCV_O.shape[:2]
+        K_rep = K.repeat_interleave(V, dim=0)
+        T_flat = TCV_O.reshape(B * V, 4, 4)
+        pts_rep = points.repeat_interleave(V, dim=0)
+        uv = project_points_robust(pts_rep, K_rep, T_flat)
+        boxes_rend = masked_boxes_from_uv(uv, points_mask.repeat_interleave(V, dim=0))
+        center = project_points_robust(torch.zeros_like(pts_rep[:, :1]), K_rep, T_flat)
+        boxes = deepim_boxes(
+            center, boxes_rend, boxes_rend, lamb=self.cfg.crop_lamb, im_size=im_hw
+        )
+        return get_K_crop_resize(K_rep, boxes, self.cfg.render_size).reshape(B, V, 3, 3)
+
+    def _render_views(self, assets, obj_ids, TCV_O, KV_crop):
+        """Render every view -> [B, V*C, h, w] channels-first."""
+        B, V = TCV_O.shape[:2]
+        out = render_batch_fused(
+            assets,
+            obj_ids.repeat_interleave(V, dim=0),
+            TCV_O.reshape(B * V, 4, 4),
+            KV_crop.reshape(B * V, 3, 3),
+            resolution=self.cfg.render_size,
+        )
+        chans = [out.rgb]
+        if self.cfg.render_normals:
+            chans.append(out.normals)
+        r = torch.cat(chans, dim=-1).permute(0, 3, 1, 2)  # [BV, C, h, w]
+        return r.reshape(B, -1, *r.shape[-2:])
+
+    # ---------- one iteration ----------
+
+    def _iteration(self, images, K, obj_ids, TCO_input, assets, meshes):
+        cfg = self.cfg
+        B = TCO_input.shape[0]
+        TCO_input = normalize_T(TCO_input)
+        tCR = TCO_input[:, :3, 3]
+        images_crop, K_crop, boxes_rend, boxes_crop = self._crop_inputs(
+            images, K, TCO_input, tCR, meshes.points, meshes.points_mask
+        )
+        TCV_O = make_TCO_multiview(
+            TCO_input, tCR,
+            multiview_type=cfg.multiview_type,
+            remove_TCO_rendering=cfg.remove_TCO_rendering,
+            views_inplane_rotations=cfg.views_inplane_rotations,
+        )
+        KV_crop = self._compute_KV_crop(
+            images.shape[-2:], K, TCV_O, meshes.points, meshes.points_mask
+        )
+        if not cfg.remove_TCO_rendering:
+            KV_crop = torch.cat([K_crop[:, None], KV_crop[:, 1:]], dim=1)
+        renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
+
+        feats = self.backbone(torch.cat([images_crop, renders], dim=1))
+        if cfg.predict_pose_update:
+            pose_raw = self.pose_fc(feats)
+            dR = rotmat_from_ortho6d(pose_raw[:, 0:6])
+            TCO_output = pose_update_with_reference_point(
+                TCO_input, K_crop, pose_raw[:, 6:9], dR, tCR
+            )
+        else:
+            pose_raw = TCO_input.new_zeros(B, 9)
+            TCO_output = TCO_input
+        if cfg.predict_rendered_views_logits:
+            logits = self.views_logits_head(feats)
+        else:
+            logits = TCO_input.new_zeros(B, cfg.n_views)
+        return PoseOutputs(
+            TCO_input=TCO_input, TCO_output=TCO_output, K_crop=K_crop,
+            boxes_rend=boxes_rend, boxes_crop=boxes_crop, tCR=tCR,
+            pose_raw=pose_raw, renderings_logits=logits,
+        )
+
+    def forward(
+        self,
+        images: torch.Tensor,  # [B, 3(+1), H, W], float in [0, 1]
+        K: torch.Tensor,  # [B, 3, 3]
+        obj_ids: torch.Tensor,  # [B]
+        TCO_input: torch.Tensor,  # [B, 4, 4]
+        assets: RenderAssets,
+        meshes: BatchedMeshes,  # per instance (select(obj_ids))
+        n_iterations: int = 1,
+    ) -> PoseOutputs:
+        images = images[:, :3]
+        outs = []
+        TCO = TCO_input
+        for _ in range(n_iterations):
+            o = self._iteration(images, K, obj_ids, TCO, assets, meshes)
+            outs.append(o)
+            TCO = o.TCO_output
+        return PoseOutputs(
+            **{f.name: torch.stack([getattr(o, f.name) for o in outs])
+               for f in fields(PoseOutputs)}
+        )

@@ -1,0 +1,371 @@
+"""Fused z-buffer + attribute interpolation: the wrapper of the hand-written
+CUDA kernel `csrc/raster_fused.cu`, and its plain PyTorch version.
+
+Port of `happypose_tpu/ops/rasterizer_pallas.py`. Each face becomes sixteen
+rows that are affine functions of the pixel coordinate (`face_affine_rows`):
+3 normalized edge functions (coverage), 1/z, six attribute*(1/z) channels
+(rgb or uv, camera-frame normal) — perspective-correct interpolation is
+`(affine attr*iz) / (affine iz)` — and six constant rows (a = b = 0)
+carrying the face's 1/z clamp range and screen bbox. Faces are sorted by
+the tile of their bbox centre and packed into 64-face chunks with a chunk
+bbox for culling (`pack_faces`).
+
+`raster_fused` sends a CUDA tensor to the kernel and a CPU tensor to
+`raster_fused_reference`, which computes the same thing chunk by chunk with
+the same tile-local arithmetic, so the two agree exactly. There is no
+fallback: a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from happypose_tpu_torch.meshes.database import RenderAssets
+from happypose_tpu_torch.ops.rasterizer import (
+    FaceData,
+    RenderOutput,
+    face_screen_data,
+    resolve_albedo,
+    shade_lambert,
+)
+
+CHUNK = 64  # faces per chunk
+N_AFF = 10  # w0, w1, w2, iz, (r, g, b, nx, ny, nz) * iz
+N_ROWS = 16  # + izmin, izmax, umin, vmin, umax, vmax (a = b = 0 rows)
+N_OUT = 7  # iz + 6 attr*iz
+# Pixel tile of one kernel block. It is part of the arithmetic (tile-local
+# coordinates, chunk culling), so the plain version uses the same tiles.
+TILE_H = 8
+TILE_W = 32
+_MAX_GRID_Y = 65535  # images per launch (CUDA grid y limit)
+
+# Kernel launches since the last reset (the CPU path never counts).
+launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def face_affine_rows(
+    u: torch.Tensor,  # [B, F, 3]
+    v: torch.Tensor,  # [B, F, 3]
+    inv_z: torch.Tensor,  # [B, F, 3]
+    valid: torch.Tensor,  # [B, F] bool
+    attr_iz: torch.Tensor,  # [B, F, 3, 6] per-vertex attr * inv_z
+    resolution: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-face packed rows A [B, F, 3 (a, b, c), N_ROWS] and screen bbox
+    [B, F, 4] (umin, vmin, umax, vmax; +-1e9 for invalid faces)."""
+    H, W = resolution
+    u0, u1, u2 = u.unbind(-1)
+    v0, v1, v2 = v.unbind(-1)
+    e1u, e1v = u1 - u0, v1 - v0
+    e2u, e2v = u2 - u0, v2 - v0
+    area = e1u * e2v - e2u * e1v
+    ok = valid & (area.abs() > 1e-12)
+    zero = torch.zeros_like(area)
+    norm = torch.where(ok, torch.sign(area) / torch.clamp(area.abs(), min=1e-12), zero)
+
+    a1, b1 = e2v * norm, -e2u * norm
+    c1 = (-u0 * e2v + v0 * e2u) * norm
+    a2, b2 = -e1v * norm, e1u * norm
+    c2 = (u0 * e1v - v0 * e1u) * norm
+    a0, b0 = -(a1 + a2), -(b1 + b2)
+    c0 = torch.where(ok, area * norm - c1 - c2, zero - 1.0)  # invalid: never covered
+
+    # normalized bary coefficients [B, F, 3 (vertex), 3 (a, b, c)]
+    bary = torch.stack(
+        [
+            torch.stack([a0, b0, c0], -1),
+            torch.stack([a1, b1, c1], -1),
+            torch.stack([a2, b2, c2], -1),
+        ],
+        dim=-2,
+    )
+    # iz and attribute channels are linear in bary: coeff = sum_j bary_j*val_j
+    vals = torch.cat([inv_z[..., None], attr_iz], dim=-1)  # [B, F, 3, 7]
+    chan = (
+        bary[..., 0, :, None] * vals[..., 0, None, :]
+        + bary[..., 1, :, None] * vals[..., 1, None, :]
+        + bary[..., 2, :, None] * vals[..., 2, None, :]
+    )  # [B, F, 3 (abc), 7]
+
+    umin = torch.clamp(u.amin(-1), 0.0, W - 1.0)
+    umax = torch.clamp(u.amax(-1), 0.0, W - 1.0)
+    vmin = torch.clamp(v.amin(-1), 0.0, H - 1.0)
+    vmax = torch.clamp(v.amax(-1), 0.0, H - 1.0)
+    big = torch.full_like(umin, 1e9)
+    bbox = torch.stack(
+        [
+            torch.where(ok, umin, big),
+            torch.where(ok, vmin, big),
+            torch.where(ok, umax, -big),
+            torch.where(ok, vmax, -big),
+        ],
+        dim=-1,
+    )
+    const_vals = torch.stack(
+        [inv_z.amin(-1), inv_z.amax(-1), umin, vmin, umax, vmax], dim=-1
+    )
+    zeros = torch.zeros_like(const_vals)
+    const_rows = torch.stack([zeros, zeros, const_vals], dim=-2)  # [B, F, 3, 6]
+    A = torch.cat([bary.transpose(-1, -2), chan, const_rows], dim=-1)
+    return A, bbox
+
+
+def _sort_key(bbox: torch.Tensor) -> torch.Tensor:
+    """Spatial sort key: tile-granular row-major index of the bbox centre."""
+    cu = (bbox[..., 0] + bbox[..., 2]) * 0.5
+    cv = (bbox[..., 1] + bbox[..., 3]) * 0.5
+    ku = torch.clamp(cu / TILE_W, 0, 255).to(torch.int32)
+    kv = torch.clamp(cv / TILE_H, 0, 255).to(torch.int32)
+    return kv * 256 + ku
+
+
+def pack_faces(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    inv_z: torch.Tensor,
+    valid: torch.Tensor,
+    attrs: torch.Tensor,  # [B, F, 3, 6] per-vertex attributes
+    resolution: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel input: A [B, n_chunks*CHUNK, 3, N_ROWS] (faces spatially
+    sorted, padded to whole chunks) and chunk_bbox [B, n_chunks, 4]."""
+    B, F = u.shape[:2]
+    pad = _cdiv(F, CHUNK) * CHUNK - F
+    if pad:
+        u = torch.nn.functional.pad(u, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        inv_z = torch.nn.functional.pad(inv_z, (0, 0, 0, pad), value=1.0)
+        valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+        attrs = torch.nn.functional.pad(attrs, (0, 0, 0, 0, 0, pad))
+    A, bbox = face_affine_rows(
+        u, v, inv_z, valid, attrs * inv_z[..., None], resolution
+    )
+    perm = torch.argsort(_sort_key(bbox), dim=1, stable=True)
+    A = torch.gather(A, 1, perm[:, :, None, None].expand_as(A)).contiguous()
+    bbox = torch.gather(bbox, 1, perm[:, :, None].expand_as(bbox))
+    bb = bbox.reshape(B, -1, CHUNK, 4)
+    chunk_bbox = torch.cat([bb[..., :2].amin(2), bb[..., 2:].amax(2)], dim=-1)
+    return A, chunk_bbox.contiguous()
+
+
+def _check_packed(A: torch.Tensor, chunk_bbox: torch.Tensor, resolution) -> None:
+    H, W = resolution
+    if A.ndim != 4 or A.shape[2:] != (3, N_ROWS) or A.shape[1] % CHUNK:
+        raise ValueError(f"A must be [B, n_chunks*{CHUNK}, 3, {N_ROWS}], got {tuple(A.shape)}")
+    B, n_chunks = A.shape[0], A.shape[1] // CHUNK
+    if tuple(chunk_bbox.shape) != (B, n_chunks, 4):
+        raise ValueError(f"chunk_bbox must be [{B}, {n_chunks}, 4], got {tuple(chunk_bbox.shape)}")
+    if A.dtype != torch.float32 or chunk_bbox.dtype != torch.float32:
+        raise TypeError("A and chunk_bbox must be float32")
+    if A.device != chunk_bbox.device:
+        raise ValueError("A and chunk_bbox must be on one device")
+    if not (A.is_contiguous() and chunk_bbox.is_contiguous()):
+        raise ValueError("A and chunk_bbox must be contiguous")
+    if H < 1 or W < 1:
+        raise ValueError(f"bad resolution {resolution}")
+
+
+def raster_fused_reference(
+    A: torch.Tensor, chunk_bbox: torch.Tensor, resolution: Tuple[int, int]
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: [B, 7, H, W].
+
+    Per image and chunk it evaluates only the tiles that the kernel does not
+    cull, with the kernel's tile-local arithmetic
+    R = (a*pu + b*pv) + ((c + a*tu0) + b*tv0), takes the chunk's best face
+    (max iz, lowest index on ties) and replaces the running best only where
+    the chunk's iz is strictly greater and > 0.
+    """
+    _check_packed(A, chunk_bbox, resolution)
+    H, W = resolution
+    B, n_chunks = A.shape[0], A.shape[1] // CHUNK
+    dev = A.device
+    n_th, n_tw = _cdiv(H, TILE_H), _cdiv(W, TILE_W)
+    out = torch.zeros(B, N_OUT, H, W, dtype=torch.float32, device=dev)
+    if n_chunks == 0:
+        return out
+
+    # the tiles each chunk overlaps (the kernel's block-uniform cull); the
+    # overlapping tiles of a chunk form one rectangle of whole tiles
+    tu0s = torch.arange(n_tw, device=dev, dtype=torch.float32) * TILE_W
+    tv0s = torch.arange(n_th, device=dev, dtype=torch.float32) * TILE_H
+    umin, vmin, umax, vmax = chunk_bbox.unbind(-1)
+    ok_u = (umax[..., None] >= tu0s) & (umin[..., None] <= tu0s + (TILE_W - 1))
+    ok_v = (vmax[..., None] >= tv0s) & (vmin[..., None] <= tv0s + (TILE_H - 1))
+
+    def span(ok):  # first and last overlapping tile, -1 when none
+        n = ok.shape[-1]
+        first = ok.int().argmax(-1)
+        last = n - 1 - ok.flip(-1).int().argmax(-1)
+        none = ~ok.any(-1)
+        return first.masked_fill(none, -1), last.masked_fill(none, -1)
+
+    spans = torch.stack([*span(ok_u), *span(ok_v)], dim=-1).tolist()
+
+    fidx = torch.arange(CHUNK, device=dev)[:, None, None]
+    for b in range(B):
+        best = out[b, 0]
+        acc = out[b, 1:]
+        for c in range(n_chunks):
+            j0, j1, i0, i1 = spans[b][c]
+            if j0 < 0 or i0 < 0:
+                continue
+            x0, x1 = j0 * TILE_W, min((j1 + 1) * TILE_W, W)
+            y0, y1 = i0 * TILE_H, min((i1 + 1) * TILE_H, H)
+            gu = torch.arange(x0, x1, device=dev)
+            gv = torch.arange(y0, y1, device=dev)
+            tu0 = ((gu // TILE_W) * TILE_W).float()
+            tv0 = ((gv // TILE_H) * TILE_H).float()
+            pu, pv = (gu.float() - tu0), (gv.float() - tv0)
+            gu, gv = gu.float(), gv.float()
+
+            Ac = A[b, c * CHUNK:(c + 1) * CHUNK]  # [CHUNK, 3, N_ROWS]
+            a, bc, cc = Ac[:, 0], Ac[:, 1], Ac[:, 2]  # [CHUNK, N_ROWS]
+
+            # edge and iz rows at every pixel of the window: [CHUNK, 4, h, w]
+            ra, rb, rc = (x[:, :4, None, None] for x in (a, bc, cc))
+            R = (ra * pu + rb * pv[:, None]) + ((rc + ra * tu0) + rb * tv0[:, None])
+            const = cc[:, N_AFF:, None, None]  # [CHUNK, 6, 1, 1]
+            iz = torch.minimum(torch.maximum(R[:, 3], const[:, 0]), const[:, 1])
+            cov = (R[:, 0] >= 0) & (R[:, 1] >= 0) & (R[:, 2] >= 0)
+            inside = (
+                (gu >= const[:, 2] - 1.0)
+                & (gu <= const[:, 4] + 1.0)
+                & (gv[:, None] >= const[:, 3] - 1.0)
+                & (gv[:, None] <= const[:, 5] + 1.0)
+            )
+            cand = torch.where(cov & inside, iz, torch.full_like(iz, -1.0))
+            cbest = cand.amax(0)  # [h, w]
+            win = torch.where(cand == cbest, fidx, CHUNK).amin(0)  # [h, w]
+            # the winner's attribute rows, evaluated pixel by pixel
+            aw = a[win, 4:N_AFF].permute(2, 0, 1)  # [6, h, w]
+            bw = bc[win, 4:N_AFF].permute(2, 0, 1)
+            cw = cc[win, 4:N_AFF].permute(2, 0, 1)
+            attr = (aw * pu + bw * pv[:, None]) + ((cw + aw * tu0) + bw * tv0[:, None])
+
+            prev = best[y0:y1, x0:x1]
+            better = (cbest > prev) & (cbest > 0)
+            best[y0:y1, x0:x1] = torch.where(better, cbest, prev)
+            acc[:, y0:y1, x0:x1] = torch.where(better, attr, acc[:, y0:y1, x0:x1])
+    return out
+
+
+def _kernel_library() -> ctypes.CDLL:
+    from happypose_tpu_torch.csrc import load_library
+
+    lib = load_library("raster_fused")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.raster_fused_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.raster_fused_launch.restype = ci
+        lib.raster_fused_error_string.argtypes = [ci]
+        lib.raster_fused_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def raster_fused(
+    A: torch.Tensor, chunk_bbox: torch.Tensor, resolution: Tuple[int, int]
+) -> torch.Tensor:
+    """[B, 7, H, W] (iz, attr*iz) of packed faces: the CUDA kernel for CUDA
+    tensors, `raster_fused_reference` for CPU tensors."""
+    global launches
+    _check_packed(A, chunk_bbox, resolution)
+    if A.device.type == "cpu":
+        return raster_fused_reference(A, chunk_bbox, resolution)
+    if A.device.type != "cuda":
+        raise ValueError(f"raster_fused runs on CUDA or CPU tensors, not {A.device}")
+    H, W = resolution
+    B, n_chunks = A.shape[0], A.shape[1] // CHUNK
+    if B > _MAX_GRID_Y:
+        raise ValueError(f"at most {_MAX_GRID_Y} images per launch, got {B}")
+    out = torch.empty(B, N_OUT, H, W, dtype=torch.float32, device=A.device)
+    if B == 0:
+        return out
+    lib = _kernel_library()
+    err = lib.raster_fused_launch(
+        A.data_ptr(), chunk_bbox.data_ptr(), out.data_ptr(), B, n_chunks, H, W,
+        A.device.index, torch.cuda.current_stream(A.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.raster_fused_error_string(err).decode()
+        raise RuntimeError(f"raster_fused kernel launch failed: {msg} ({err})")
+    launches += 1
+    return out
+
+
+def rasterize(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    inv_z: torch.Tensor,
+    valid: torch.Tensor,
+    attrs: torch.Tensor,
+    resolution: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of `raster_fused_pallas`: (iz [B, H, W], attr [B, 6, H, W])
+    with attr already divided by iz (0 on background)."""
+    A, chunk_bbox = pack_faces(u, v, inv_z, valid, attrs, resolution)
+    x = raster_fused(A, chunk_bbox, resolution)
+    iz = x[:, 0]
+    z = torch.where(iz > 0, 1.0 / torch.clamp(iz, min=1e-12), torch.zeros_like(iz))
+    return iz, x[:, 1:N_OUT] * z[:, None]
+
+
+def face_inputs(
+    inst: RenderAssets,  # per instance (`RenderAssets.select`)
+    TCO: torch.Tensor,  # [B, 4, 4]
+    K: torch.Tensor,  # [B, 3, 3]
+) -> Tuple[FaceData, torch.Tensor]:
+    """Screen-space faces of B instances and their per-vertex attributes
+    [B, F, 3, 6]: color channels + camera-frame normals. Textured instances
+    carry (u, v, 0) in the color channels, resolved to texture RGB after
+    the kernel."""
+    fd = face_screen_data(inst.vertices, inst.faces, inst.faces_mask, TCO, K)
+    uv0 = torch.cat([inst.vertex_uv, torch.zeros_like(inst.vertex_uv[..., :1])], -1)
+    attr_c = torch.where(inst.has_texture[:, None, None], uv0, inst.vertex_colors)
+    n_cam = inst.vertex_normals @ TCO[:, :3, :3].transpose(1, 2)
+    av = torch.cat([attr_c, n_cam], dim=-1)  # [B, V, 6]
+    faces = inst.faces
+    attrs = torch.gather(
+        av, 1, faces.reshape(faces.shape[0], -1, 1).expand(-1, -1, 6)
+    ).reshape(*faces.shape, 6)
+    return fd, attrs
+
+
+def render_batch_fused(
+    assets: RenderAssets,
+    obj_ids: torch.Tensor,  # [B]
+    TCO: torch.Tensor,  # [B, 4, 4]
+    K: torch.Tensor,  # [B, 3, 3]
+    resolution: Tuple[int, int] = (240, 320),
+    light_ambient: float = 0.6,
+    light_diffuse: float = 0.6,
+) -> RenderOutput:
+    """Render B object instances, one per image (counterpart of
+    `render_batch_pallas`)."""
+    inst = assets.select(obj_ids)
+    fd, attrs = face_inputs(inst, TCO, K)
+    iz, attr = rasterize(fd.u, fd.v, fd.inv_z, fd.valid, attrs, resolution)
+
+    hit = iz > 0
+    depth = torch.where(hit, 1.0 / torch.clamp(iz, min=1e-12), torch.zeros_like(iz))
+    rgb = attr[:, 0:3].permute(0, 2, 3, 1)  # [B, H, W, 3]
+    n = attr[:, 3:6].permute(0, 2, 3, 1)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-8)
+    n = torch.where(n[..., 2:3] > 0, -n, n)
+    albedo = resolve_albedo(rgb, assets.textures, obj_ids, inst.has_texture)
+    rgb = shade_lambert(albedo, n, light_ambient, light_diffuse)
+    hit_f = hit[..., None]
+    return RenderOutput(
+        rgb=torch.where(hit_f, rgb, torch.zeros_like(rgb)),
+        depth=depth,
+        mask=hit,
+        normals=torch.where(hit_f, n, torch.zeros_like(n)),
+    )

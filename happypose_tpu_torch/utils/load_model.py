@@ -1,0 +1,81 @@
+"""Named-model registry + one-call loading (PyTorch port of the MegaPose
+part of `happypose_tpu/utils/load_model.py`).
+
+Every render goes where its tensors live: a model loaded on a CUDA device
+renders with the hand-written CUDA rasterizer, a model on the CPU with its
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
+from happypose_tpu_torch.inference.types import InferenceConfig
+from happypose_tpu_torch.meshes.database import MeshDataBase
+from happypose_tpu_torch.models.pose_predictor import (
+    PosePredictor,
+    PosePredictorConfig,
+)
+
+
+@dataclass
+class NamedModelSpec:
+    """A named pipeline configuration (the 'megapose-1.0-RGB' analog)."""
+
+    refiner_cfg: PosePredictorConfig
+    coarse_cfg: PosePredictorConfig
+    inference_cfg: InferenceConfig
+
+
+NAMED_MODELS: Dict[str, NamedModelSpec] = {
+    # MegaPose-style novel-object pipeline (coarse classifier + refiner):
+    # ResNet34, 240x320 RGB + normals renders, 576-rotation grid, top-5,
+    # 5 refiner iterations
+    "megapose-RGB": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(render_size=(240, 320), render_normals=True),
+        coarse_cfg=PosePredictorConfig(
+            render_size=(240, 320), render_normals=True,
+            predict_pose_update=False, predict_rendered_views_logits=True,
+        ),
+        inference_cfg=InferenceConfig(
+            n_refiner_iterations=5, SO3_grid_size=576, n_pose_hypotheses=5,
+        ),
+    ),
+}
+
+
+def load_named_model(
+    name: str,
+    mesh_db: MeshDataBase,
+    n_points: int = 1000,
+    seed: int = 0,
+    device="cpu",
+    state_dicts: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+) -> PoseEstimator:
+    """Build a PoseEstimator for `name` on `device`.
+
+    Weights are fresh and seeded (refiner from `seed`, coarse model from
+    `seed + 1`, drawn from a `torch.Generator`) unless `state_dicts`
+    {"refiner": ..., "coarse": ...} gives them, e.g. from
+    `utils.weights_from_jax.pose_predictor_state_dict`.
+    """
+    spec = NAMED_MODELS[name]
+    state_dicts = state_dicts or {}
+
+    def build(cfg: PosePredictorConfig, role: str, model_seed: int) -> PosePredictor:
+        model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(model_seed))
+        if role in state_dicts:
+            model.load_state_dict(state_dicts[role])
+        return model.to(device).eval()
+
+    return PoseEstimator(
+        refiner=build(spec.refiner_cfg, "refiner", seed),
+        coarse=build(spec.coarse_cfg, "coarse", seed + 1),
+        assets=mesh_db.render_assets(device=device),
+        meshes=mesh_db.batched(n_points=n_points, device=device),
+        cfg=spec.inference_cfg,
+    )
