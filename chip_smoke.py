@@ -22,6 +22,23 @@ Phases (any failure raises, so the exit code is nonzero):
 5. The same pipeline cut to 64x128 renders, a 72-rotation grid, top-2 and
    2 iterations, on the card and on the CPU (the plain path): logits and
    final poses must agree.
+6. The detector at full width: `load_detector(DetectorConfig(n_classes=2))`
+   (ResNet50-FPN, 256 channels, 16 prototypes, head depth 2, 5 levels),
+   seeded, on the synthetic frame cropped and resized to 240x320 by
+   `crop_resize_to_aspect`. Raw outputs against the same model on the
+   CPU, `detector_postprocess` on the card against the CPU's on the same
+   raw outputs; forward and post-processing timed warm.
+7. `load_named_model("cosypose-RGB")` at full width (WideResNet34, 240x320
+   RGB renders, 1 coarse + 4 refiner iterations) with seeded weights and
+   perturbed pose heads, on the frame's 2 boxes: the launch counter must
+   show ceil(D / bsz_objects) x (1 + 4) renders; warm s/image, the stage
+   split and peak memory are reported.
+8. Detector -> box mapping (as the evaluation runner maps them back to the
+   frame) -> cosypose-RGB, on the card: every detection gets a finite pose.
+   Seeded detector weights score ~0.01, under the default threshold of
+   0.3, so this runs at threshold 0 with one instance per class.
+9. cosypose-RGB cut to WideResNet18, 64x128 renders and 2 refiner
+   iterations, on the card and on the CPU: final poses must agree.
 
 Prints the nvidia-smi line and a JSON line of kernel results, and as its
 last line `{"ok": true, "device": {...}}`. TF32 is off throughout.
@@ -47,6 +64,7 @@ BATCHES = (16, 288)  # refiner chunk (also compared with the plain version), coa
 MATCH_FRACTION = 0.999  # pixels on which kernel and plain version must agree
 IZ_RTOL = 1e-6  # where they agree: iz to 1e-6 relative,
 ATTR_ATOL = 1e-5  # the six attr*iz values to 1e-5 (both are expected exact)
+RAW_RTOL = 1e-3  # detector outputs, card against CPU, of the largest |value|: fp32, 50+ layers
 
 
 def log(msg: str) -> None:
@@ -202,16 +220,31 @@ def _synthetic_frame(db, dev, seed=0):
 
 
 def _load(name, db, dev, seed=0):
-    """Seeded estimator whose refiner pose head is perturbed (a fresh head
-    is an identity update)."""
+    """Seeded estimator whose pose heads are perturbed (a fresh head is an
+    identity update)."""
     from happypose_tpu_torch.utils.load_model import load_named_model
 
     est = load_named_model(name, db, n_points=1000, seed=seed, device=dev)
     g = torch.Generator().manual_seed(seed + 100)
     with torch.no_grad():
-        w = est.refiner_model.pose_fc.weight
-        w += (torch.randn(w.shape, generator=g) * 3e-3).to(w.device)
+        for model in (est.refiner_model, est.coarse_model):
+            if model is not None and model.cfg.predict_pose_update:
+                w = model.pose_fc.weight
+                w += (torch.randn(w.shape, generator=g) * 3e-3).to(w.device)
     return est
+
+
+def _timed(fn):
+    """(fn(), seconds) on the host clock around a synchronized run."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _fmt(times) -> str:
+    return f"{statistics.median(times):.4f} (runs {', '.join(f'{t:.4f}' for t in times)})"
 
 
 def phase_pipeline(dev) -> int:
@@ -262,15 +295,8 @@ def phase_pipeline(dev) -> int:
     moved = (res[f"iteration={cfg.n_refiner_iterations}"].poses - res["iteration=1"].poses).abs().max()
     assert moved > 0, "the refiner did not move the poses"
 
-    times = [t_run]
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        est.run_inference_pipeline(obs, det)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    log(f"pipeline: warm s/image {statistics.median(times):.4f} "
-        f"(runs {', '.join(f'{t:.4f}' for t in times)}); "
+    times = [t_run] + [_timed(lambda: est.run_inference_pipeline(obs, det))[1] for _ in range(2)]
+    log(f"pipeline: warm s/image {_fmt(times)}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
@@ -316,6 +342,188 @@ def phase_small_cross_check(dev) -> None:
             assert dp[:, :3, 3].max() < 1e-4 and dp[:, :3, :3].max() < 1e-4
 
 
+def _detector_input(obs, image_size):
+    from happypose_tpu_torch.datasets.augmentations import crop_resize_to_aspect
+
+    return crop_resize_to_aspect(obs.rgb, obs.K, image_size)
+
+
+def _match_detections(a: dict, b: dict, img: int) -> int:
+    """Valid detections of image `img` in post-processing outputs a and b
+    pair up one to one by box (slot order may differ where scores tie to
+    the last bit): same label, box within 1e-3 px, score within 1e-6
+    relative, masks equal on >= 99.9% of pixels. Returns the count."""
+    va, vb = a["valid"][img].nonzero()[:, 0].tolist(), b["valid"][img].nonzero()[:, 0].tolist()
+    assert len(va) == len(vb), f"{len(va)} != {len(vb)} detections"
+    for i in va:
+        d = (b["boxes"][img, vb] - a["boxes"][img, i]).abs().amax(dim=1)
+        j = vb[int(d.argmin())]
+        assert d.min() < 1e-3 and a["labels"][img, i] == b["labels"][img, j]
+        assert (a["scores"][img, i] - b["scores"][img, j]).abs() <= 1e-6 * b["scores"][img, j]
+        assert (a["masks"][img, i] != b["masks"][img, j]).float().mean() <= 1e-3
+    return len(va)
+
+
+def phase_detector(dev) -> None:
+    """Full-width detector on the card against the same model on the CPU."""
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.models.detector import DetectorConfig, detector_postprocess
+    from happypose_tpu_torch.utils.load_model import load_detector
+
+    cfg = DetectorConfig(n_classes=2)
+    gpu, cpu = (load_detector(cfg, seed=0, device=d) for d in (dev, "cpu"))
+    obs, _ = _synthetic_frame(debug_mesh_db(MeshDataBase, io), dev)
+    x, _ = _detector_input(obs, gpu.image_size)
+    log(f"detector: {cfg}, input {tuple(x.shape)}")
+    with torch.inference_mode():
+        out = gpu.model(x)
+        ref = cpu.model(x.cpu())
+        for f in out._fields:
+            o, r = getattr(out, f).cpu().double(), getattr(ref, f).double()
+            assert o.shape == r.shape and torch.isfinite(o).all(), f
+            err = ((o - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+            log(f"  {f} {tuple(o.shape)}: max abs diff / max |cpu| = {err:.3g}")
+            assert err <= RAW_RTOL, f"{f}: {err}"
+        post = detector_postprocess(out, score_threshold=0.0)
+        post_cpu = detector_postprocess(type(out)(*(t.cpu() for t in out)), score_threshold=0.0)
+        n = _match_detections({k: v.cpu() for k, v in post.items()}, post_cpu, 0)
+        log(f"  postprocess on the card = on the CPU, same raw outputs: {n} detections")
+        t_fwd = [_timed(lambda: gpu.model(x))[1] for _ in range(6)][1:]
+        t_post = [_timed(lambda: detector_postprocess(out))[1] for _ in range(6)][1:]
+    log(f"detector: warm forward s {_fmt(t_fwd)}; postprocess s {_fmt(t_post)}")
+
+
+def phase_cosypose(dev) -> int:
+    """cosypose-RGB at full width on the frame's 2 boxes."""
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    db = debug_mesh_db(MeshDataBase, io)
+    obs, det = _synthetic_frame(db, dev)
+    est = _load("cosypose-RGB", db, dev)
+    cfg = est.cfg
+    D = det.n_rows
+    expected = math.ceil(D / cfg.bsz_objects) * (cfg.n_coarse_iterations + cfg.n_refiner_iterations)
+    log(f"cosypose: cosypose-RGB, {est.refiner_model.cfg.backbone}, render "
+        f"{est.refiner_model.cfg.render_size}, {cfg.n_coarse_iterations} coarse + "
+        f"{cfg.n_refiner_iterations} refiner iterations, D={D}")
+    torch.cuda.reset_peak_memory_stats()
+    _, t_first = _timed(lambda: est.run_inference_pipeline(obs, det))
+    log(f"cosypose: first run {t_first:.3f} s")
+
+    rf.launches = 0
+    res, t_run = _timed(lambda: est.run_inference_pipeline(obs, det))
+    launches = rf.launches
+    log(f"cosypose: raster_fused launches {launches}, expected {expected}")
+    assert launches == expected, f"kernel launches {launches} != {expected}"
+    final = res["final"]
+    assert final.poses.shape == (D, 4, 4) and torch.isfinite(final.poses).all()
+    assert bool(final.valid.all()) and torch.equal(final.obj_ids, det.obj_ids)
+    for prev, cur in (("init", "coarse"), ("coarse", "iteration=1"),
+                      ("iteration=1", f"iteration={cfg.n_refiner_iterations}")):
+        assert (res[cur].poses - res[prev].poses).abs().max() > 0, f"{prev} -> {cur} did not move"
+
+    times = [t_run] + [_timed(lambda: est.run_inference_pipeline(obs, det))[1] for _ in range(2)]
+    log(f"cosypose: warm s/image {_fmt(times)}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    stages = {"init": [], "coarse": [], "refiner": []}
+    for _ in range(3):
+        init, t = _timed(lambda: est.make_TCO_init(obs, det))
+        stages["init"].append(t)
+        (coarse, _), t = _timed(lambda: est._forward_coarse_pose_model(obs, init))
+        stages["coarse"].append(t)
+        stages["refiner"].append(_timed(lambda: est.forward_refiner(obs, coarse))[1])
+    log("cosypose: stage s " + "; ".join(f"{k} {_fmt(v)}" for k, v in stages.items()))
+    return launches
+
+
+def _boxes_to_frame(det, K_frame, K_det):
+    """Boxes predicted in the detector's crop, mapped back to the frame
+    (the evaluation runner's inverse of the aspect crop)."""
+    from happypose_tpu_torch.inference.types import DetectionBatch
+
+    s = (K_det[0, 0] / K_frame[0, 0]).item()
+    offx = (K_det[0, 2] - K_frame[0, 2] * s).item()
+    offy = (K_det[1, 2] - K_frame[1, 2] * s).item()
+    boxes = det.boxes.cpu().numpy().copy()
+    boxes[:, 0::2] = (boxes[:, 0::2] - offx) / s
+    boxes[:, 1::2] = (boxes[:, 1::2] - offy) / s
+    return DetectionBatch.from_numpy(
+        boxes=boxes, obj_ids=det.obj_ids.cpu().numpy(), scores=det.scores.cpu().numpy(),
+        device=det.boxes.device,
+    )
+
+
+def phase_chained(dev) -> int:
+    """Detector -> box mapping -> cosypose-RGB, all on the card."""
+    from happypose_tpu_torch.inference.types import ObservationBatch
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.models.detector import DetectorConfig
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.utils.load_model import load_detector
+
+    db = debug_mesh_db(MeshDataBase, io)
+    obs, _ = _synthetic_frame(db, dev)
+    detector = load_detector(DetectorConfig(n_classes=len(db.labels)), seed=0, device=dev)
+    est = _load("cosypose-RGB", db, dev)
+
+    def detect():
+        x, K = _detector_input(obs, detector.image_size)
+        det, _ = detector.get_detections(
+            ObservationBatch(rgb=x, K=K), detection_th=0.0, one_instance_per_class=True,
+        )
+        return _boxes_to_frame(det, obs.K[0], K[0])
+
+    detect()  # warm-up
+    est.run_inference_pipeline(obs, detect())
+    rf.launches = 0
+    det, t_det = _timed(detect)
+    res, t_pose = _timed(lambda: est.run_inference_pipeline(obs, det))
+    launches = rf.launches
+    final = res["final"]
+    boxes = np.array2string(det.boxes.cpu().numpy(), precision=1, separator=", ")
+    log(f"chained: {det.n_rows} detections, boxes {boxes}, "
+        f"labels {det.obj_ids.tolist()}; detector {t_det:.4f} s, poses {t_pose:.4f} s; "
+        f"raster_fused launches {launches}")
+    assert det.n_rows >= 1 and torch.isfinite(det.boxes).all()
+    assert final.poses.shape == (det.n_rows, 4, 4) and torch.isfinite(final.poses).all()
+    assert bool(final.valid.all())
+    expected = math.ceil(det.n_rows / est.cfg.bsz_objects) * (
+        est.cfg.n_coarse_iterations + est.cfg.n_refiner_iterations)
+    assert launches == expected, f"kernel launches {launches} != {expected}"
+    return launches
+
+
+def phase_cosypose_small_cross_check(dev) -> None:
+    """cosypose-RGB cut to WideResNet18, 64x128 and 2 refiner iterations, on
+    the card and on the CPU: every stage's poses to 1e-4."""
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.utils import load_model as lm
+
+    spec = lm.NAMED_MODELS["cosypose-RGB"]
+    small = {"backbone": "wide_resnet18", "render_size": (64, 128)}
+    lm.NAMED_MODELS["cosypose-RGB-small"] = dataclasses.replace(
+        spec,
+        refiner_cfg=dataclasses.replace(spec.refiner_cfg, **small),
+        coarse_cfg=dataclasses.replace(spec.coarse_cfg, **small),
+        inference_cfg=dataclasses.replace(spec.inference_cfg, n_refiner_iterations=2),
+    )
+    db = debug_mesh_db(MeshDataBase, io)
+    g, c = (
+        _load("cosypose-RGB-small", db, d).run_inference_pipeline(*_synthetic_frame(db, d, seed=1))
+        for d in (dev, torch.device("cpu"))
+    )
+    assert sorted(g) == sorted(c)
+    for k in g:
+        dp = (g[k].poses.cpu() - c[k].poses).abs().max().item()
+        log(f"small cosypose cross-check cuda vs cpu: {k} pose max diff {dp:.3g}")
+        assert dp < 1e-4
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -323,15 +531,20 @@ def main() -> None:
     torch.cuda.set_device(dev)
     phase_build()
     kernel = phase_kernel(dev)
-    launches = phase_pipeline(dev)
+    launches = {"megapose-RGB": phase_pipeline(dev)}
     phase_small_cross_check(dev)
+    phase_detector(dev)
+    launches["cosypose-RGB"] = phase_cosypose(dev)
+    launches["detector->cosypose-RGB"] = phase_chained(dev)
+    phase_cosypose_small_cross_check(dev)
     print(json.dumps({"kernels": [{
         "name": "raster_fused",
         "route": "cuda",
         "source": "happypose_tpu_torch/csrc/raster_fused.cu",
         "replaces": "happypose_tpu/ops/rasterizer_pallas.py:308",
         "also_replaces": "happypose_tpu/ops/rasterizer_pallas.py:257",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],

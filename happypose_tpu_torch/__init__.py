@@ -9,8 +9,11 @@ function is held against its JAX reference by `tests/test_torch_*.py`.
 - ``ops``:       the rasterizer (hand-written CUDA kernel + plain PyTorch
                  version), crop-resize matmuls, segment ops.
 - ``csrc``:      CUDA sources and their nvcc build.
-- ``models``:    ResNet34 + the render-and-compare pose predictor.
-- ``inference``: the MegaPose single-view pipeline.
+- ``models``:    ResNet34, WideResNet18/34, the render-and-compare pose
+                 predictor and the FCOS + YOLACT-mask detector.
+- ``datasets``:  the detector's input crop (`crop_resize_to_aspect`).
+- ``inference``: the MegaPose and CosyPose single-view pipelines and the
+                 detector wrapper.
 - ``utils``:     named models and the Flax -> PyTorch weight bridge.
 
 This package imports neither `jax` nor `happypose_tpu`.

@@ -1,1 +1,2 @@
-"""The MegaPose single-view pipeline and its data types."""
+"""The MegaPose and CosyPose single-view pipelines, the detector wrapper and
+their data types."""

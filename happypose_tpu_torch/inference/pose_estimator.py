@@ -1,11 +1,17 @@
-"""MegaPose single-view pose estimation (PyTorch port of the MegaPose branch
-of `happypose_tpu/inference/pose_estimator.py`).
+"""Single-view pose estimation (PyTorch port of
+`happypose_tpu/inference/pose_estimator.py`; the depth refiners are not
+ported). Two flavours, chosen by the coarse model:
 
-Each detection is replicated over the SO(3) grid with an autodepth init,
-every hypothesis is scored by the coarse classifier, the top-K per
-detection are refined, re-scored, and the best one is kept. The hypothesis
-axis is cut into chunks of `bsz_images` (coarse, scoring) and
-`bsz_objects` (refiner); each chunk is one model call and one render batch.
+- MegaPose (a coarse hypothesis classifier): each detection is replicated
+  over the SO(3) grid with an autodepth init, every hypothesis is scored,
+  the top-K per detection are refined, re-scored, and the best one is kept.
+- CosyPose (a coarse pose model, or none): each detection starts at the
+  z-up autodepth init, the coarse model runs `n_coarse_iterations` pose
+  updates, the refiner `n_refiner_iterations`.
+
+The hypothesis axis is cut into chunks of `bsz_images` (coarse scoring)
+and `bsz_objects` (pose updates); each chunk is one model call and one
+render batch per iteration.
 """
 
 from __future__ import annotations
@@ -21,7 +27,10 @@ from happypose_tpu_torch.inference.types import (
     ObservationBatch,
     PoseEstimateBatch,
 )
-from happypose_tpu_torch.lib3d.pose_init import TCO_init_from_boxes_autodepth_with_R
+from happypose_tpu_torch.lib3d.pose_init import (
+    TCO_init_from_boxes_autodepth_with_R,
+    TCO_init_from_boxes_zup_autodepth,
+)
 from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
 from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
 from happypose_tpu_torch.models.pose_predictor import PosePredictor
@@ -29,27 +38,28 @@ from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
 
 
 class PoseEstimator:
-    """Orchestrates the MegaPose pipeline.
+    """Orchestrates the pipelines.
 
-    refiner: pose-update PosePredictor; coarse: hypothesis-classifier
-    PosePredictor (`predict_rendered_views_logits`); assets / meshes: the
-    padded mesh database on the device the pipeline runs on.
+    refiner: pose-update PosePredictor; coarse: a hypothesis-classifier
+    PosePredictor (`predict_rendered_views_logits`: MegaPose), a pose-update
+    PosePredictor (CosyPose) or None (CosyPose without a coarse model);
+    assets / meshes: the padded mesh database on the device the pipeline
+    runs on.
     """
 
     def __init__(
         self,
         refiner: PosePredictor,
-        coarse: PosePredictor,
+        coarse: Optional[PosePredictor],
         assets: RenderAssets,
         meshes: BatchedMeshes,
         cfg: InferenceConfig = InferenceConfig(),
     ):
-        if not coarse.cfg.predict_rendered_views_logits:
-            raise NotImplementedError(
-                "only the MegaPose flavor (a coarse hypothesis classifier) is ported"
-            )
         self.refiner_model = refiner
         self.coarse_model = coarse
+        self._coarse_is_classifier = (
+            coarse is not None and coarse.cfg.predict_rendered_views_logits
+        )
         self.assets = assets
         self.meshes = meshes
         self.cfg = cfg
@@ -122,13 +132,23 @@ class PoseEstimator:
     ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
         """Refine all estimates, `bsz_objects` at a time. Returns (final,
         {"iteration=k": estimates after k iterations})."""
-        n_iterations = n_iterations or self.cfg.n_refiner_iterations
+        return self._update_poses(
+            self.refiner_model, obs, estimates,
+            n_iterations or self.cfg.n_refiner_iterations,
+        )
+
+    def _update_poses(
+        self, model: PosePredictor, obs: ObservationBatch,
+        estimates: PoseEstimateBatch, n_iterations: int,
+    ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
+        """`n_iterations` pose updates of `model` on all estimates,
+        `bsz_objects` at a time."""
         images = obs.images
         chunks = []
         for s in range(0, estimates.n_rows, self.cfg.bsz_objects):
             sl = slice(s, s + self.cfg.bsz_objects)
             obj_ids = estimates.obj_ids[sl]
-            out = self.refiner_model(
+            out = model(
                 images[estimates.batch_im_ids[sl]], estimates.K[sl], obj_ids,
                 estimates.poses[sl], self.assets, self.meshes.select(obj_ids),
                 n_iterations=n_iterations,
@@ -172,6 +192,39 @@ class PoseEstimator:
         return dataclasses.replace(estimates, valid=keep)
 
     # ------------------------------------------------------------------
+    # CosyPose: z-up init, coarse pose model
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def make_TCO_init(
+        self, obs: ObservationBatch, detections: DetectionBatch
+    ) -> PoseEstimateBatch:
+        """One estimate per detection at the BOP20 z-up autodepth init."""
+        K = obs.K[detections.batch_im_ids]
+        inst = self.meshes.select(detections.obj_ids)
+        TCO = TCO_init_from_boxes_zup_autodepth(
+            detections.boxes, inst.points, K, inst.points_mask
+        )
+        z = torch.zeros_like(detections.scores)
+        return PoseEstimateBatch(
+            poses=TCO, K=K, obj_ids=detections.obj_ids,
+            batch_im_ids=detections.batch_im_ids,
+            instance_ids=detections.instance_ids,
+            hypothesis_ids=torch.zeros_like(detections.obj_ids),
+            scores=detections.scores, coarse_logits=z, pose_logits=z,
+            valid=detections.valid,
+        )
+
+    @torch.inference_mode()
+    def _forward_coarse_pose_model(
+        self, obs: ObservationBatch, estimates: PoseEstimateBatch
+    ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
+        """CosyPose coarse: the coarse pose model run `n_coarse_iterations`."""
+        return self._update_poses(
+            self.coarse_model, obs, estimates, self.cfg.n_coarse_iterations
+        )
+
+    # ------------------------------------------------------------------
     # Full pipeline
     # ------------------------------------------------------------------
 
@@ -183,12 +236,25 @@ class PoseEstimator:
         n_refiner_iterations: Optional[int] = None,
         n_pose_hypotheses: Optional[int] = None,
     ) -> Dict[str, PoseEstimateBatch]:
-        """Grid scoring -> top-K -> refine -> re-score -> top-1.
-
-        Returns the estimates of every stage: "coarse", "iteration=k",
-        "scored" and "final" (one valid row per detection)."""
-        n_hyp = n_pose_hypotheses or self.cfg.n_pose_hypotheses
+        """MegaPose when the coarse model is a classifier: grid scoring ->
+        top-K -> refine -> re-score -> top-1; returns the estimates of every
+        stage: "coarse", "iteration=k", "scored" and "final" (one valid row
+        per detection). CosyPose otherwise: init -> coarse iterations ->
+        refiner iterations; returns "init", "coarse" (when there is a coarse
+        model), "iteration=k" and "final", whose `pose_logits` are the
+        detection scores (CosyPose has no scoring model)."""
         results: Dict[str, PoseEstimateBatch] = {}
+        if not self._coarse_is_classifier:
+            est = results["init"] = self.make_TCO_init(obs, detections)
+            if self.coarse_model is not None:
+                est, _ = self._forward_coarse_pose_model(obs, est)
+                results["coarse"] = est
+            final, per_iter = self.forward_refiner(obs, est, n_refiner_iterations)
+            results.update(per_iter)
+            results["final"] = dataclasses.replace(final, pose_logits=final.scores)
+            return results
+
+        n_hyp = n_pose_hypotheses or self.cfg.n_pose_hypotheses
         coarse = self.forward_coarse(obs, detections)
         results["coarse"] = coarse
         kept = self.filter_top_k(coarse, by="coarse_logits", k=n_hyp)

@@ -130,11 +130,13 @@ class PoseEstimateBatch:
 
 @dataclass(frozen=True)
 class InferenceConfig:
-    """Pipeline configuration: 5 refiner iterations, an SO(3) grid of 576,
-    5 kept pose hypotheses (each refined, re-scored, then top-1), and the
-    batch sizes the hypothesis axis is cut into."""
+    """Pipeline configuration: 5 refiner iterations, 1 CosyPose coarse
+    iteration, an SO(3) grid of 576 and 5 kept pose hypotheses (MegaPose:
+    each refined, re-scored, then top-1), and the batch sizes the
+    hypothesis axis is cut into."""
 
     n_refiner_iterations: int = 5
+    n_coarse_iterations: int = 1  # CosyPose-style coarse
     n_pose_hypotheses: int = 5
     SO3_grid_size: int = 576
     bsz_images: int = 288  # coarse hypotheses per forward chunk

@@ -3,11 +3,32 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from happypose_tpu_torch.lib3d.transforms import make_T, transform_pts
+
+# BOP20 z-up canonical orientation used for the CosyPose coarse init: object
+# z-up, camera looking along -x of the object frame.
+_ZUP = torch.tensor(
+    [[0.0, 1.0, 0.0, 0.0],
+     [0.0, 0.0, -1.0, 0.0],
+     [-1.0, 0.0, 0.0, 1.0],
+     [0.0, 0.0, 0.0, 1.0]]
+)
+
+
+def TCO_init_from_boxes(
+    z_range: Tuple[float, float], boxes: torch.Tensor, K: torch.Tensor
+) -> torch.Tensor:
+    """Identity rotation, z = mean(z_range), xy from the box-centre ray."""
+    z = torch.full_like(boxes[:, :1], (z_range[0] + z_range[1]) / 2.0)
+    uv_c = (boxes[:, 0:2] + boxes[:, 2:4]) / 2
+    fxfy = torch.stack([K[:, 0, 0], K[:, 1, 1]], dim=-1)
+    xy = (uv_c - K[:, 0:2, 2]) * z / fxfy
+    eye = torch.eye(3, dtype=boxes.dtype, device=boxes.device)
+    return make_T(eye, torch.cat([xy, z], dim=-1))
 
 
 def _autodepth(
@@ -55,3 +76,16 @@ def TCO_init_from_boxes_autodepth_with_R(
     z = _autodepth(make_T(R, t0), boxes_2d, model_points_3d, K, points_mask)
     xy = (bb_c - cxcy) * z[:, None] / fxfy
     return make_T(R, torch.cat([xy, z[:, None]], dim=-1))
+
+
+def TCO_init_from_boxes_zup_autodepth(
+    boxes_2d: torch.Tensor,
+    model_points_3d: torch.Tensor,
+    K: torch.Tensor,
+    points_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """BOP20 init: the canonical z-up orientation + autodepth."""
+    R = _ZUP[:3, :3].to(dtype=boxes_2d.dtype, device=boxes_2d.device)
+    return TCO_init_from_boxes_autodepth_with_R(
+        boxes_2d, model_points_3d, K, R, points_mask
+    )

@@ -1,1 +1,2 @@
-"""Models: the ResNet34 backbone and the render-and-compare pose predictor."""
+"""Models: the ResNet34 and WideResNet backbones, the render-and-compare pose
+predictor and the FCOS detector."""

@@ -3,11 +3,13 @@
 
 One iteration: crop the observation around the reprojected model points,
 render the object at the current pose in the crop camera (the hand-written
-CUDA rasterizer for CUDA tensors), run ResNet34 on [crop, rgb render,
-normals render], then either apply the SE(3) update of the pose head
-(refiner) or return the rendered-view logits (MegaPose coarse hypothesis
-classifier). The pose head starts at the identity update, so an untrained
-refiner is a no-op.
+CUDA rasterizer for CUDA tensors), run the backbone (ResNet34 for
+MegaPose, WideResNet18/34 for CosyPose) on [crop, rgb render, normals
+render when configured], then either apply the SE(3) update of the pose
+head (ortho6d or quaternion; the refiner and the CosyPose coarse model) or
+return the rendered-view logits (MegaPose coarse hypothesis classifier).
+The pose head starts at the identity update, so an untrained refiner is a
+no-op.
 """
 
 from __future__ import annotations
@@ -27,20 +29,31 @@ from happypose_tpu_torch.lib3d.camera import (
 from happypose_tpu_torch.lib3d.cropping import deepim_boxes
 from happypose_tpu_torch.lib3d.multiview_geom import make_TCO_multiview
 from happypose_tpu_torch.lib3d.pose_update import pose_update_with_reference_point
-from happypose_tpu_torch.lib3d.rotations import rotmat_from_ortho6d
+from happypose_tpu_torch.lib3d.rotations import quat_to_rotmat, rotmat_from_ortho6d
 from happypose_tpu_torch.lib3d.transforms import make_T, normalize_T
 from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
-from happypose_tpu_torch.models.backbones import ResNet, ResNet34
+from happypose_tpu_torch.models.backbones import ResNet34, WideResNet18, WideResNet34
 from happypose_tpu_torch.ops.crop_resize import crop_images_matmul
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 
-_IDENTITY_ORTHO6D_POSE = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+# head outputs of the identity update: ortho6d (x, y columns) + vxvyvz, and
+# quaternion (xyzw) + vxvyvz, with vz = 1 (no depth change)
+_IDENTITY_POSE = {
+    "ortho6d": (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0),
+    "quaternion": (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0),
+}
+_BACKBONES = {
+    "resnet34": ResNet34,
+    "wide_resnet18": WideResNet18,
+    "wide_resnet34": WideResNet34,
+}
 
 
 @dataclass(frozen=True)
 class PosePredictorConfig:
-    """Static model configuration (ResNet34 backbone, ortho6d pose head)."""
+    """Static model configuration."""
 
+    backbone: str = "resnet34"  # resnet34 | wide_resnet18 | wide_resnet34
     render_size: Tuple[int, int] = (240, 320)
     multiview_type: str = "TCO"  # TCO | front_1view | front_3views | sphere_26views
     remove_TCO_rendering: bool = False
@@ -48,6 +61,8 @@ class PosePredictorConfig:
     render_normals: bool = True
     predict_pose_update: bool = True
     predict_rendered_views_logits: bool = False
+    # ortho6d (9 outputs) | quaternion (7 outputs, the CosyPose models' head)
+    pose_head: str = "ortho6d"
     crop_lamb: float = 1.4
 
     @property
@@ -75,7 +90,7 @@ class PoseOutputs:
     boxes_rend: torch.Tensor  # [n_iter, B, 4]
     boxes_crop: torch.Tensor  # [n_iter, B, 4]
     tCR: torch.Tensor  # [n_iter, B, 3]
-    pose_raw: torch.Tensor  # [n_iter, B, 9]
+    pose_raw: torch.Tensor  # [n_iter, B, 9] (ortho6d) or [n_iter, B, 7] (quaternion)
     renderings_logits: torch.Tensor  # [n_iter, B, n_views]
 
 
@@ -83,11 +98,14 @@ class PosePredictor(nn.Module):
     def __init__(self, cfg: PosePredictorConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = ResNet34(n_inputs=3 + cfg.n_views * cfg.n_render_channels)
+        self.backbone = _BACKBONES[cfg.backbone](
+            n_inputs=3 + cfg.n_views * cfg.n_render_channels
+        )
+        n_features = self.backbone.n_features
         if cfg.predict_pose_update:
-            self.pose_fc = nn.Linear(ResNet.n_features, 9)
+            self.pose_fc = nn.Linear(n_features, len(_IDENTITY_POSE[cfg.pose_head]))
         if cfg.predict_rendered_views_logits:
-            self.views_logits_head = nn.Linear(ResNet.n_features, cfg.n_views)
+            self.views_logits_head = nn.Linear(n_features, cfg.n_views)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "PosePredictor":
@@ -108,7 +126,7 @@ class PosePredictor(nn.Module):
             self.pose_fc.weight.copy_(
                 torch.randn(self.pose_fc.weight.shape, generator=generator) * 1e-3
             )
-            self.pose_fc.bias.copy_(torch.tensor(_IDENTITY_ORTHO6D_POSE))
+            self.pose_fc.bias.copy_(torch.tensor(_IDENTITY_POSE[self.cfg.pose_head]))
         return self
 
     # ---------- geometry ----------
@@ -186,9 +204,14 @@ class PosePredictor(nn.Module):
         feats = self.backbone(torch.cat([images_crop, renders], dim=1))
         if cfg.predict_pose_update:
             pose_raw = self.pose_fc(feats)
-            dR = rotmat_from_ortho6d(pose_raw[:, 0:6])
+            if cfg.pose_head == "quaternion":
+                dR = quat_to_rotmat(pose_raw[:, 0:4])
+                vxvyvz = pose_raw[:, 4:7]
+            else:
+                dR = rotmat_from_ortho6d(pose_raw[:, 0:6])
+                vxvyvz = pose_raw[:, 6:9]
             TCO_output = pose_update_with_reference_point(
-                TCO_input, K_crop, pose_raw[:, 6:9], dR, tCR
+                TCO_input, K_crop, vxvyvz, dR, tCR
             )
         else:
             pose_raw = TCO_input.new_zeros(B, 9)

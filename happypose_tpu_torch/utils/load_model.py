@@ -1,5 +1,7 @@
-"""Named-model registry + one-call loading (PyTorch port of the MegaPose
-part of `happypose_tpu/utils/load_model.py`).
+"""Named-model registry + one-call loading (PyTorch port of
+`happypose_tpu/utils/load_model.py`). Weights are seeded or given as state
+dicts (e.g. carried over from Flax by `utils.weights_from_jax`); reading
+the JAX package's checkpoint files needs Flax and is not ported.
 
 Every render goes where its tensors live: a model loaded on a CUDA device
 renders with the hand-written CUDA rasterizer, a model on the CPU with its
@@ -9,13 +11,15 @@ plain PyTorch version.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from happypose_tpu_torch.inference.detector import Detector
 from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
 from happypose_tpu_torch.inference.types import InferenceConfig
 from happypose_tpu_torch.meshes.database import MeshDataBase
+from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
 from happypose_tpu_torch.models.pose_predictor import (
     PosePredictor,
     PosePredictorConfig,
@@ -27,7 +31,7 @@ class NamedModelSpec:
     """A named pipeline configuration (the 'megapose-1.0-RGB' analog)."""
 
     refiner_cfg: PosePredictorConfig
-    coarse_cfg: PosePredictorConfig
+    coarse_cfg: Optional[PosePredictorConfig]
     inference_cfg: InferenceConfig
 
 
@@ -45,6 +49,28 @@ NAMED_MODELS: Dict[str, NamedModelSpec] = {
             n_refiner_iterations=5, SO3_grid_size=576, n_pose_hypotheses=5,
         ),
     ),
+    # the JAX package's second MegaPose name; its configs equal megapose-RGB's
+    "megapose-RGB-multi-hypothesis": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(render_size=(240, 320)),
+        coarse_cfg=PosePredictorConfig(
+            render_size=(240, 320), predict_pose_update=False,
+            predict_rendered_views_logits=True,
+        ),
+        inference_cfg=InferenceConfig(
+            n_refiner_iterations=5, SO3_grid_size=576, n_pose_hypotheses=5,
+        ),
+    ),
+    # CosyPose-style known-object pipeline (coarse pose model + refiner):
+    # WideResNet34, 240x320 RGB renders, 1 coarse + 4 refiner iterations
+    "cosypose-RGB": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(
+            backbone="wide_resnet34", render_size=(240, 320), render_normals=False,
+        ),
+        coarse_cfg=PosePredictorConfig(
+            backbone="wide_resnet34", render_size=(240, 320), render_normals=False,
+        ),
+        inference_cfg=InferenceConfig(n_coarse_iterations=1, n_refiner_iterations=4),
+    ),
 }
 
 
@@ -58,8 +84,9 @@ def load_named_model(
 ) -> PoseEstimator:
     """Build a PoseEstimator for `name` on `device`.
 
-    Weights are fresh and seeded (refiner from `seed`, coarse model from
-    `seed + 1`, drawn from a `torch.Generator`) unless `state_dicts`
+    Weights are fresh and seeded (refiner from `seed`, coarse model, when
+    the spec has one, from `seed + 1`, drawn from a `torch.Generator`)
+    unless `state_dicts`
     {"refiner": ..., "coarse": ...} gives them, e.g. from
     `utils.weights_from_jax.pose_predictor_state_dict`.
     """
@@ -74,8 +101,28 @@ def load_named_model(
 
     return PoseEstimator(
         refiner=build(spec.refiner_cfg, "refiner", seed),
-        coarse=build(spec.coarse_cfg, "coarse", seed + 1),
+        coarse=(
+            build(spec.coarse_cfg, "coarse", seed + 1) if spec.coarse_cfg else None
+        ),
         assets=mesh_db.render_assets(device=device),
         meshes=mesh_db.batched(n_points=n_points, device=device),
         cfg=spec.inference_cfg,
     )
+
+
+def load_detector(
+    cfg: DetectorConfig,
+    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+    seed: int = 0,
+    device="cpu",
+    image_size: Tuple[int, int] = (240, 320),
+) -> Detector:
+    """Build a `Detector` on `device` that runs at `image_size` (H, W).
+
+    Weights are fresh and seeded from `seed` unless `state_dict` gives
+    them, e.g. from `utils.weights_from_jax.detector_state_dict`. Its class
+    indices must be the mesh database's object ids."""
+    model = FCOSDetector(cfg).init_weights(torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return Detector(model.to(device), image_size=image_size)

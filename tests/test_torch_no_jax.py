@@ -17,8 +17,9 @@ def test_port_imports_no_jax():
             happypose_tpu_torch.__path__, prefix="happypose_tpu_torch."
         )
     )
-    assert "happypose_tpu_torch.ops.rasterizer_fused" in modules
-    assert "happypose_tpu_torch.utils.weights_from_jax" in modules
+    for name in ("ops.rasterizer_fused", "utils.weights_from_jax", "models.detector",
+                 "inference.detector", "datasets.augmentations"):
+        assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
