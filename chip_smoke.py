@@ -7,13 +7,19 @@ Phases (any failure raises, so the exit code is nonzero):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Needs `torch.cuda.is_available()`.
-2. Build: `happypose_tpu_torch/csrc/raster_fused.cu` with nvcc for sm_90a.
-3. Kernel against its plain version (`raster_fused_reference`) on the same
-   CUDA tensors, B = 16 at 240x320, on the ~1.5k-face debug mesh (UV
-   sphere 24x32 + box) and a ~16k-face sphere, seeded poses; and at the
-   coarse batch (B = 288), on the debug mesh against the plain version and
-   on the 16k mesh timed alone. Times are medians of synchronized runs
-   (CUDA events).
+2. Build: `happypose_tpu_torch/csrc/raster_fused.cu` with nvcc for sm_90a;
+   what `-Xptxas -v` says of each kernel (registers, shared memory, spills).
+3. Kernels against their plain versions on the same CUDA tensors, at
+   240x320 with seeded poses, on the ~1.5k-face debug mesh (UV sphere
+   24x32 + box) and a ~16k-face sphere, at the refiner's batch (B = 16) and
+   the coarse batch (B = 288): the per-tile face lists against
+   `bin_faces_reference` (integers, exactly), the output against
+   `raster_fused_reference` (of the 16k mesh at B = 288 the first 16
+   images: the plain version of the whole batch would take minutes), and
+   the output with a pool too small for the lists against the normal one.
+   For each shape: the kernel's time (CUDA events, median of 10 after
+   warm-up), its bound computed from the tensors' sizes and the faces'
+   screen boxes, and the share of the bound reached.
 4. The slice at full width: `load_named_model("megapose-RGB")` (ResNet34,
    240x320 RGB + normals renders, 576-rotation grid, top-5, 5 refiner
    iterations) with seeded weights and a perturbed pose head, on a
@@ -32,7 +38,8 @@ Phases (any failure raises, so the exit code is nonzero):
    RGB renders, 1 coarse + 4 refiner iterations) with seeded weights and
    perturbed pose heads, on the frame's 2 boxes: the launch counter must
    show ceil(D / bsz_objects) x (1 + 4) renders; warm s/image, the stage
-   split and peak memory are reported.
+   split, peak memory and the number of device kernels of one frame
+   (`torch.profiler`) are reported.
 8. Detector -> box mapping (as the evaluation runner maps them back to the
    frame) -> cosypose-RGB, on the card: every detection gets a finite pose.
    Seeded detector weights score ~0.01, under the default threshold of
@@ -87,6 +94,55 @@ def cuda_ms(fn, n_runs: int, n_warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
+FP32_FLOP_PER_S = 67e12  # H100 SXM outside the tensor cores, data sheet
+FLOP_PER_TEST = 30  # one pixel against one face: 4 affine rows, clamp, compares
+
+
+def raster_bound(A, chunk_bbox, out) -> dict:
+    """The least time the card could take for one `raster_fused` call: the
+    larger of its bytes (each input read once, the output written once)
+    over the memory rate and of the tests its inputs need over the float32
+    rate. A face must be tested at the pixels that can accept it, those of
+    its screen bbox (the constant rows of `A`) with the 1 px margin of the
+    coverage test, inside the image: a count from the inputs alone, whatever
+    tiles or lists a kernel works with."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    n_bytes = sum(t.numel() * t.element_size() for t in (A, chunk_bbox, out))
+    H, W = out.shape[2:]
+    umin, vmin, umax, vmax = A[:, :, 2, rf.N_AFF + 2:].double().unbind(-1)
+    n_u = (umax + 1).floor().clamp(max=W - 1) - (umin - 1).ceil().clamp(min=0) + 1
+    n_v = (vmax + 1).floor().clamp(max=H - 1) - (vmin - 1).ceil().clamp(min=0) + 1
+    n_tests = (n_u.clamp(min=0) * n_v.clamp(min=0)).sum().item()  # 0 for an invalid face
+    flop = n_tests * FLOP_PER_TEST
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+KERNEL_MESHES = ("debug_1.5k", "sphere_16k")
+
+
+def kernel_inputs(mesh: str, B: int, dev):
+    """Packed faces (A, chunk_bbox) of B seeded poses of `mesh` at RES, the
+    objects filling much of the image, as in a crop."""
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    if mesh == "debug_1.5k":
+        db = debug_mesh_db(MeshDataBase, io)
+    else:
+        db = MeshDataBase({"sphere": io.make_uv_sphere(radius=0.05, n_lat=90, n_lon=90)})
+    f = 600.0 * RES[1] / 320
+    K = torch.tensor([[f, 0, RES[1] / 2], [0, f, RES[0] / 2], [0, 0, 1]])
+    ids = (torch.arange(B) % len(db.labels)).to(dev)
+    inst = db.render_assets(device=dev).select(ids)
+    fd, attrs = rf.face_inputs(inst, random_poses(B, seed=B).to(dev), K.expand(B, 3, 3).to(dev))
+    return rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, RES)
+
+
 def debug_mesh_db(MeshDataBase, io):
     """The ~1.5k-face debug mesh set of `bench.py` (`_mesh_db("debug")`)."""
     return MeshDataBase({
@@ -129,7 +185,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     import happypose_tpu_torch
-    from happypose_tpu_torch.csrc import build, library_path
+    from happypose_tpu_torch.csrc import build, build_log, library_path
 
     if Path(happypose_tpu_torch.__file__).resolve().parents[1] != ROOT:
         raise RuntimeError(f"happypose_tpu_torch not from this checkout: {happypose_tpu_torch.__file__}")
@@ -138,57 +194,93 @@ def phase_build() -> None:
     path = build("raster_fused")
     log(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s"
         f"{' (already built)' if cached else ''}")
+    for line in build_log("raster_fused").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log("  " + line.replace("ptxas info    : ", "").strip())
+
+
+# the kernels of csrc/raster_fused.cu, and the single kernel it had before
+RASTER_KERNELS = ("bin_kernel", "order_kernel", "raster_kernel", "raster_fused_kernel")
+
+
+def profile_device(fn):
+    """One call of `fn` under `torch.profiler`: (the averaged events that ran
+    on the card: kernels, copies and memsets, not the host's launch calls;
+    those of them that are the rasterizer's kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert events, "torch.profiler recorded no device activity"
+    return events, [e for e in events if any(k in e.key for k in RASTER_KERNELS)]
+
+
+def _agreement(out, ref):
+    """(share of pixels on which two kernel outputs agree, max abs diff)."""
+    iz, iz_ref = out[:, 0], ref[:, 0]
+    same = (
+        ((iz > 0) == (iz_ref > 0))
+        & ((iz - iz_ref).abs() <= IZ_RTOL * iz_ref.abs())
+        & ((out[:, 1:] - ref[:, 1:]).abs().amax(1) <= ATTR_ATOL)
+    )
+    return same.float().mean().item(), (out - ref).abs().max().item()
 
 
 def phase_kernel(dev) -> dict:
-    from happypose_tpu_torch.meshes import io
-    from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.ops import rasterizer_fused as rf
 
-    f = 600.0 * RES[1] / 320  # objects fill much of the image, as in a crop
-    K = torch.tensor([[f, 0, RES[1] / 2], [0, f, RES[0] / 2], [0, 0, 1]])
-    meshes = {
-        "debug_1.5k": debug_mesh_db(MeshDataBase, io),
-        "sphere_16k": MeshDataBase({"sphere": io.make_uv_sphere(radius=0.05, n_lat=90, n_lon=90)}),
-    }
-    result = {"max_abs_err": 0.0}
-    for name, db in meshes.items():
-        assets = db.render_assets(device=dev)
-        n_obj = len(db.labels)
+    result = {"max_abs_err": 0.0, "shapes": {}}
+    for mesh in KERNEL_MESHES:
         for B in BATCHES:
-            ids = (torch.arange(B) % n_obj).to(dev)
-            TCO = random_poses(B, seed=B).to(dev)
-            inst = assets.select(ids)
-            fd, attrs = rf.face_inputs(inst, TCO, K.expand(B, 3, 3).to(dev))
-            A, bbox = rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, RES)
+            A, bbox = kernel_inputs(mesh, B, dev)
             out = rf.raster_fused(A, bbox, RES)
             torch.cuda.synchronize()
-            ms = cuda_ms(lambda: rf.raster_fused(A, bbox, RES), n_runs=10, n_warmup=2)
-            line = (f"kernel {name} B={B} faces/image<={int(inst.faces_mask.sum(1).max())} "
-                    f"chunks={A.shape[1] // rf.CHUNK}: {ms:.3f} ms")
-            # the plain version of the 16k mesh at the coarse batch would
-            # take minutes, so that case is timed only
-            if B == BATCHES[0] or name == "debug_1.5k":
+            assert torch.isfinite(out).all()
+
+            count, lists = rf.bin_faces(A, bbox, RES)
+            count_ref, lists_ref = rf.bin_faces_reference(A, bbox, RES)
+            assert torch.equal(count, count_ref) and torch.equal(lists, lists_ref), \
+                f"{mesh} B={B}: the face lists differ from the plain version's"
+            bound = raster_bound(A, bbox, out)
+            line = (f"; lists = plain lists, mean {count.float().mean():.1f} max "
+                    f"{int(count.max())} faces a tile")
+            shape = dict(bound)
+            result["shapes"][f"{mesh}_B{B}"] = shape
+
+            # every tile unlisted, and a pool that holds some of the lists
+            for cap in (0, int(count.sum()) // 2):
+                frac, err = _agreement(rf.raster_fused(A, bbox, RES, pool_capacity=cap), out)
+                assert frac == 1.0 and err == 0.0, f"{mesh} B={B}: pool of {cap} changes the result"
+
+            if B == BATCHES[0] or mesh == "debug_1.5k":
                 ref = rf.raster_fused_reference(A, bbox, RES)
                 plain_ms = cuda_ms(lambda: rf.raster_fused_reference(A, bbox, RES), n_runs=3)
-                iz, iz_ref = out[:, 0], ref[:, 0]
-                same = (
-                    ((iz > 0) == (iz_ref > 0))
-                    & ((iz - iz_ref).abs() <= IZ_RTOL * iz_ref.abs())
-                    & ((out[:, 1:] - ref[:, 1:]).abs().amax(1) <= ATTR_ATOL)
-                )
-                frac = same.float().mean().item()
-                err = (out - ref).abs().max().item()
-                hit = (iz_ref > 0).float().mean().item()
-                line += (f", plain {plain_ms:.3f} ms; agree on {frac:.6f} of pixels, "
-                         f"max abs err {err:.3g}, covered {hit:.3f}")
-                assert math.isfinite(err) and torch.isfinite(out).all()
-                assert hit > 0.05, f"{name}: the scene covers only {hit:.3f} of the pixels"
-                assert frac >= MATCH_FRACTION, f"{name}: kernel agrees on {frac} of pixels"
-                result["max_abs_err"] = max(result["max_abs_err"], err)
-                if name == "debug_1.5k" and B == BATCHES[0]:
-                    result.update(ms=ms, plain_ms=plain_ms)
-            log(line)
+                shape["plain_ms"] = plain_ms
+                hit = (ref[:, 0] > 0).float().mean().item()
+                assert hit > 0.05, f"{mesh}: the scene covers only {hit:.3f} of the pixels"
+                line += f"; plain {plain_ms:.3f} ms, covered {hit:.3f}"
+            else:
+                # the plain version of the whole batch would take minutes
+                n = BATCHES[0]
+                out = out[:n]
+                ref = rf.raster_fused_reference(A[:n].contiguous(), bbox[:n].contiguous(), RES)
+                line += f"; plain version on the first {n} images"
+            frac, err = _agreement(out, ref)
+            line += f"; agree on {frac:.6f} of pixels, max abs err {err:.3g}"
+            assert math.isfinite(err)
+            assert frac >= MATCH_FRACTION, f"{mesh}: kernel agrees on {frac} of pixels"
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            # timed last, when the comparisons have brought the card's clocks up
+            ms = cuda_ms(lambda: rf.raster_fused(A, bbox, RES), n_runs=10, n_warmup=2)
+            shape.update(ms=ms, share_of_bound=bound["bound_ms"] / ms)
+            log(f"kernel {mesh} B={B} chunks={A.shape[1] // rf.CHUNK}: {ms:.3f} ms, bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: bytes {bound['bytes_ms']:.4f}, "
+                f"operations {bound['ops_ms']:.4f}), share {shape['share_of_bound']:.3f}" + line)
+    main_shape = result["shapes"][f"debug_1.5k_B{BATCHES[0]}"]
+    result.update({k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")})
     return result
 
 
@@ -436,6 +528,13 @@ def phase_cosypose(dev) -> int:
         stages["coarse"].append(t)
         stages["refiner"].append(_timed(lambda: est.forward_refiner(obs, coarse))[1])
     log("cosypose: stage s " + "; ".join(f"{k} {_fmt(v)}" for k, v in stages.items()))
+
+    # the path is bound by the host's kernel launches: count one frame's
+    events, ours = profile_device(lambda: est.run_inference_pipeline(obs, det))
+    log(f"cosypose: one frame under torch.profiler: {sum(e.count for e in events)} device "
+        f"kernels and copies, {sum(e.count for e in ours)} of them the rasterizer's "
+        f"({sum(e.device_time_total for e in ours) / 1e3:.3f} ms of "
+        f"{sum(e.device_time_total for e in events) / 1e3:.3f} ms device time)")
     return launches
 
 
@@ -546,8 +645,14 @@ def main() -> None:
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": kernel["max_abs_err"],
+        # at the refiner's shape (debug mesh, B = 16); all four under "shapes"
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"],
+        "share_of_bound": kernel["share_of_bound"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "shapes": kernel["shapes"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

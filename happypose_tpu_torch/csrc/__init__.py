@@ -3,9 +3,11 @@
 Each `<stem>.cu` file here exports a plain C interface. `load_library`
 compiles it with `nvcc` for Hopper (`sm_90a`) into `csrc/build/` at first
 use, keyed by a hash of the source and the flags so an edited source is
-rebuilt, and loads the shared library with `ctypes`. The build runs on the
-machine with the card; nothing here is imported or compiled at package
-import time.
+rebuilt, and loads the shared library with `ctypes`. What the compiler
+printed (`-Xptxas -v`: registers, shared memory and spills of each kernel)
+is kept beside the library (`build_log`). The build runs on the machine
+with the card; nothing here is imported or compiled at package import
+time.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ BUILD_DIR = _DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -68,11 +70,17 @@ def build(stem: str) -> Path:
                 f"nvcc failed for {stem}.cu (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_log(stem: str) -> str:
+    """What nvcc and ptxas printed when the current build was made."""
+    return build(stem).with_suffix(".log").read_text()
 
 
 def load_library(stem: str) -> ctypes.CDLL:

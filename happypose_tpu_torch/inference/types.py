@@ -30,7 +30,7 @@ class ObservationBatch:
     @staticmethod
     def from_numpy(
         rgb: np.ndarray, K: np.ndarray, depth: Optional[np.ndarray] = None,
-        device="cpu",
+        device="cuda",
     ) -> "ObservationBatch":
         """rgb uint8 or float [H, W, 3] or [B, H, W, 3] -> ObservationBatch."""
         if rgb.ndim == 3:
@@ -75,7 +75,7 @@ class DetectionBatch:
         obj_ids: np.ndarray,
         batch_im_ids: Optional[np.ndarray] = None,
         scores: Optional[np.ndarray] = None,
-        device="cpu",
+        device="cuda",
     ) -> "DetectionBatch":
         n = len(boxes)
         if batch_im_ids is None:

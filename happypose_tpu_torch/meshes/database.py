@@ -119,7 +119,7 @@ class MeshDataBase:
     def id_of(self, label: str) -> int:
         return self.label_to_id[label]
 
-    def batched(self, n_points: int = 2000, device="cpu") -> BatchedMeshes:
+    def batched(self, n_points: int = 2000, device="cuda") -> BatchedMeshes:
         """Padded point database: `n_points` vertices per object, evenly
         subsampled, or cycled when the mesh has fewer."""
         n_obj = len(self.labels)
@@ -150,7 +150,7 @@ class MeshDataBase:
         n_vertices: Optional[int] = None,
         n_faces: Optional[int] = None,
         texture_size: int = 256,
-        device="cpu",
+        device="cuda",
     ) -> RenderAssets:
         """Padded triangle-soup tensors for the rasterizer.
 

@@ -19,7 +19,7 @@ fallback: a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,7 +40,8 @@ N_OUT = 7  # iz + 6 attr*iz
 # coordinates, chunk culling), so the plain version uses the same tiles.
 TILE_H = 8
 TILE_W = 32
-_MAX_GRID_Y = 65535  # images per launch (CUDA grid y limit)
+_MAX_TILES = 2**31 - 1  # (image, tile) pairs per call: the kernels index them with an int
+_N_COUNTERS = 68  # int32 words of the kernels' zeroed scratch (raster_fused.cu)
 
 # Kernel launches since the last reset (the CPU path never counts).
 launches = 0
@@ -108,8 +109,10 @@ def face_affine_rows(
         ],
         dim=-1,
     )
-    const_vals = torch.stack(
-        [inv_z.amin(-1), inv_z.amax(-1), umin, vmin, umax, vmax], dim=-1
+    # the constant rows carry the same bbox, so a face that can never be
+    # covered (invalid or degenerate) is inside nowhere and reaches no tile
+    const_vals = torch.cat(
+        [inv_z.amin(-1, keepdim=True), inv_z.amax(-1, keepdim=True), bbox], dim=-1
     )
     zeros = torch.zeros_like(const_vals)
     const_rows = torch.stack([zeros, zeros, const_vals], dim=-2)  # [B, F, 3, 6]
@@ -170,44 +173,82 @@ def _check_packed(A: torch.Tensor, chunk_bbox: torch.Tensor, resolution) -> None
         raise ValueError("A and chunk_bbox must be contiguous")
     if H < 1 or W < 1:
         raise ValueError(f"bad resolution {resolution}")
+    if B * _cdiv(H, TILE_H) * _cdiv(W, TILE_W) > _MAX_TILES:
+        raise ValueError(f"at most {_MAX_TILES} (image, tile) pairs per call")
+
+
+def _reach(bbox: torch.Tensor, resolution: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Which tile columns [..., n_tw] and tile rows [..., n_th] a screen bbox
+    [..., 4] reaches. `inside` accepts a face up to one pixel outside its
+    bbox, so the tile test takes the same margin, with the same float32
+    operations as the kernel."""
+    H, W = resolution
+    dev = bbox.device
+    tu0 = torch.arange(_cdiv(W, TILE_W), device=dev, dtype=torch.float32) * TILE_W
+    tv0 = torch.arange(_cdiv(H, TILE_H), device=dev, dtype=torch.float32) * TILE_H
+    umin, vmin, umax, vmax = (x[..., None] for x in bbox.unbind(-1))
+    reach_u = (tu0 + (TILE_W - 1) >= umin - 1.0) & (tu0 <= umax + 1.0)
+    reach_v = (tv0 + (TILE_H - 1) >= vmin - 1.0) & (tv0 <= vmax + 1.0)
+    return reach_u, reach_v
+
+
+def bin_faces_reference(
+    A: torch.Tensor, chunk_bbox: torch.Tensor, resolution: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the binning kernel: per (image, tile) the
+    packed indices of the faces whose chunk bbox and own bbox (the face's
+    constant rows) reach the tile, margin included. Returns the list
+    lengths [B, n_tiles] int32 and the lists themselves, concatenated in
+    (image, tile) order, each ascending: [sum of lengths] int32."""
+    _check_packed(A, chunk_bbox, resolution)
+    counts, lists = [], []
+    for b in range(A.shape[0]):
+        fu, fv = _reach(A[b, :, 2, N_AFF + 2:], resolution)  # [Fp, n_tw], [Fp, n_th]
+        cu, cv = _reach(chunk_bbox[b], resolution)
+        fu &= cu.repeat_interleave(CHUNK, dim=0)
+        fv &= cv.repeat_interleave(CHUNK, dim=0)
+        member = (fv.T[:, None, :] & fu.T[None, :, :]).flatten(0, 1)  # [n_tiles, Fp]
+        counts.append(member.sum(-1).to(torch.int32))
+        lists.append(member.nonzero()[:, 1].to(torch.int32))
+    if not counts:
+        n_tiles = _cdiv(resolution[0], TILE_H) * _cdiv(resolution[1], TILE_W)
+        return (torch.zeros(0, n_tiles, dtype=torch.int32, device=A.device),
+                torch.zeros(0, dtype=torch.int32, device=A.device))
+    return torch.stack(counts), torch.cat(lists)
 
 
 def raster_fused_reference(
     A: torch.Tensor, chunk_bbox: torch.Tensor, resolution: Tuple[int, int]
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device: [B, 7, H, W].
+    """Plain PyTorch version of the kernels, on any device: [B, 7, H, W].
 
-    Per image and chunk it evaluates only the tiles that the kernel does not
-    cull, with the kernel's tile-local arithmetic
-    R = (a*pu + b*pv) + ((c + a*tu0) + b*tv0), takes the chunk's best face
-    (max iz, lowest index on ties) and replaces the running best only where
-    the chunk's iz is strictly greater and > 0.
+    A pixel tests the faces of its tile's list (`bin_faces_reference`) in
+    ascending packed order. Here that runs chunk by chunk over the window
+    of tiles the chunk reaches, with list membership as a mask, and with
+    the kernel's tile-local arithmetic
+    R = (a*pu + b*pv) + ((c + a*tu0) + b*tv0): the chunk's best face (max
+    iz, lowest index on ties) replaces the running best only where its iz
+    is strictly greater and > 0.
     """
     _check_packed(A, chunk_bbox, resolution)
     H, W = resolution
     B, n_chunks = A.shape[0], A.shape[1] // CHUNK
     dev = A.device
-    n_th, n_tw = _cdiv(H, TILE_H), _cdiv(W, TILE_W)
     out = torch.zeros(B, N_OUT, H, W, dtype=torch.float32, device=dev)
     if n_chunks == 0:
         return out
 
-    # the tiles each chunk overlaps (the kernel's block-uniform cull); the
-    # overlapping tiles of a chunk form one rectangle of whole tiles
-    tu0s = torch.arange(n_tw, device=dev, dtype=torch.float32) * TILE_W
-    tv0s = torch.arange(n_th, device=dev, dtype=torch.float32) * TILE_H
-    umin, vmin, umax, vmax = chunk_bbox.unbind(-1)
-    ok_u = (umax[..., None] >= tu0s) & (umin[..., None] <= tu0s + (TILE_W - 1))
-    ok_v = (vmax[..., None] >= tv0s) & (vmin[..., None] <= tv0s + (TILE_H - 1))
-
-    def span(ok):  # first and last overlapping tile, -1 when none
+    # the tiles each chunk reaches form one rectangle of whole tiles
+    def span(ok):  # first and last reached tile, -1 when none
         n = ok.shape[-1]
         first = ok.int().argmax(-1)
         last = n - 1 - ok.flip(-1).int().argmax(-1)
         none = ~ok.any(-1)
         return first.masked_fill(none, -1), last.masked_fill(none, -1)
 
-    spans = torch.stack([*span(ok_u), *span(ok_v)], dim=-1).tolist()
+    cu, cv = _reach(chunk_bbox, resolution)
+    spans = torch.stack([*span(cu), *span(cv)], dim=-1).tolist()
+    face_u, face_v = _reach(A[:, :, 2, N_AFF + 2:], resolution)  # [B, Fp, n_tw], [B, Fp, n_th]
 
     fidx = torch.arange(CHUNK, device=dev)[:, None, None]
     for b in range(B):
@@ -221,12 +262,13 @@ def raster_fused_reference(
             y0, y1 = i0 * TILE_H, min((i1 + 1) * TILE_H, H)
             gu = torch.arange(x0, x1, device=dev)
             gv = torch.arange(y0, y1, device=dev)
-            tu0 = ((gu // TILE_W) * TILE_W).float()
-            tv0 = ((gv // TILE_H) * TILE_H).float()
+            tj, ti = gu // TILE_W, gv // TILE_H
+            tu0, tv0 = (tj * TILE_W).float(), (ti * TILE_H).float()
             pu, pv = (gu.float() - tu0), (gv.float() - tv0)
             gu, gv = gu.float(), gv.float()
 
-            Ac = A[b, c * CHUNK:(c + 1) * CHUNK]  # [CHUNK, 3, N_ROWS]
+            faces = slice(c * CHUNK, (c + 1) * CHUNK)
+            Ac = A[b, faces]  # [CHUNK, 3, N_ROWS]
             a, bc, cc = Ac[:, 0], Ac[:, 1], Ac[:, 2]  # [CHUNK, N_ROWS]
 
             # edge and iz rows at every pixel of the window: [CHUNK, 4, h, w]
@@ -241,7 +283,8 @@ def raster_fused_reference(
                 & (gv[:, None] >= const[:, 3] - 1.0)
                 & (gv[:, None] <= const[:, 5] + 1.0)
             )
-            cand = torch.where(cov & inside, iz, torch.full_like(iz, -1.0))
+            listed = face_v[b, faces][:, ti, None] & face_u[b, faces][:, None, tj]
+            cand = torch.where(cov & inside & listed, iz, torch.full_like(iz, -1.0))
             cbest = cand.amax(0)  # [h, w]
             win = torch.where(cand == cbest, fidx, CHUNK).amin(0)  # [h, w]
             # the winner's attribute rows, evaluated pixel by pixel
@@ -257,25 +300,86 @@ def raster_fused_reference(
     return out
 
 
-def _kernel_library() -> ctypes.CDLL:
-    from happypose_tpu_torch.csrc import load_library
-
-    lib = load_library("raster_fused")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.raster_fused_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.raster_fused_launch.restype = ci
-        lib.raster_fused_error_string.argtypes = [ci]
-        lib.raster_fused_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of `raster_fused.cu`."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.raster_fused_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+    lib.raster_fused_launch.restype = ci
+    lib.raster_fused_error_string.argtypes = [ci]
+    lib.raster_fused_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def raster_fused(
+def _kernel_library() -> ctypes.CDLL:
+    from happypose_tpu_torch.csrc import load_library
+
+    return _bind(load_library("raster_fused"))
+
+
+def _launch(A, chunk_bbox, resolution, out, pool_capacity):
+    """Allocate the kernels' scratch and enqueue them on the current stream:
+    the binning kernel alone when `out` is None, else all three. Returns
+    (tile_meta [B * n_tiles, 4] int32: list length, offset into the pool or
+    -1 where the pool was full, queue bucket, place in the bucket;
+    pool int32), views of the scratch."""
+    H, W = resolution
+    B, Fp = A.shape[:2]
+    n_items = B * _cdiv(H, TILE_H) * _cdiv(W, TILE_W)
+    if A.data_ptr() % 16 or chunk_bbox.data_ptr() % 16:
+        raise ValueError("A and chunk_bbox must be 16-byte aligned")
+    if pool_capacity is None:
+        pool_capacity = min(2 * B * Fp + 16 * n_items, 2**31 - 1)
+    # counters, tile_meta, queue, pool: the layout of raster_fused_launch
+    scratch = torch.empty(
+        _N_COUNTERS + 5 * n_items + pool_capacity, dtype=torch.int32, device=A.device
+    )
+    lib = _kernel_library()
+    err = lib.raster_fused_launch(
+        A.data_ptr(), chunk_bbox.data_ptr(), None if out is None else out.data_ptr(),
+        scratch.data_ptr(), B, Fp // CHUNK, H, W, pool_capacity, A.device.index,
+        torch.cuda.current_stream(A.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.raster_fused_error_string(err).decode()
+        raise RuntimeError(f"raster_fused kernel launch failed: {msg} ({err})")
+    tile_meta = scratch[_N_COUNTERS:_N_COUNTERS + 4 * n_items].view(n_items, 4)
+    return tile_meta, scratch[_N_COUNTERS + 5 * n_items:]
+
+
+def bin_faces(
     A: torch.Tensor, chunk_bbox: torch.Tensor, resolution: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-tile face lists in the form of `bin_faces_reference`: from
+    the binning kernel for CUDA tensors (a check, not part of a render: it
+    synchronizes), from the plain version for CPU tensors."""
+    _check_packed(A, chunk_bbox, resolution)
+    if A.device.type == "cpu":
+        return bin_faces_reference(A, chunk_bbox, resolution)
+    if A.device.type != "cuda":
+        raise ValueError(f"bin_faces runs on CUDA or CPU tensors, not {A.device}")
+    B = A.shape[0]
+    if B == 0:
+        return bin_faces_reference(A, chunk_bbox, resolution)
+    tile_meta, pool = _launch(A, chunk_bbox, resolution, None, None)
+    count, offset = tile_meta[:, 0].long(), tile_meta[:, 1].long()
+    if bool(((count > 0) & (offset < 0)).any()):
+        raise RuntimeError("bin_faces: the face lists did not fit the pool")
+    first = torch.cumsum(count, 0) - count  # where each list starts in the result
+    within = torch.arange(int(count.sum()), device=A.device) - first.repeat_interleave(count)
+    return count.reshape(B, -1).to(torch.int32), pool[offset.repeat_interleave(count) + within]
+
+
+def raster_fused(
+    A: torch.Tensor,
+    chunk_bbox: torch.Tensor,
+    resolution: Tuple[int, int],
+    pool_capacity: Optional[int] = None,
 ) -> torch.Tensor:
-    """[B, 7, H, W] (iz, attr*iz) of packed faces: the CUDA kernel for CUDA
-    tensors, `raster_fused_reference` for CPU tensors."""
+    """[B, 7, H, W] (iz, attr*iz) of packed faces: the CUDA kernels for CUDA
+    tensors, `raster_fused_reference` for CPU tensors. `pool_capacity`
+    (entries of all face lists together; default: room for twice the faces
+    plus 16 entries a tile) only moves tiles between the listed and the
+    unlisted path of the kernel; the result does not depend on it."""
     global launches
     _check_packed(A, chunk_bbox, resolution)
     if A.device.type == "cpu":
@@ -283,20 +387,10 @@ def raster_fused(
     if A.device.type != "cuda":
         raise ValueError(f"raster_fused runs on CUDA or CPU tensors, not {A.device}")
     H, W = resolution
-    B, n_chunks = A.shape[0], A.shape[1] // CHUNK
-    if B > _MAX_GRID_Y:
-        raise ValueError(f"at most {_MAX_GRID_Y} images per launch, got {B}")
-    out = torch.empty(B, N_OUT, H, W, dtype=torch.float32, device=A.device)
-    if B == 0:
+    out = torch.empty(A.shape[0], N_OUT, H, W, dtype=torch.float32, device=A.device)
+    if A.shape[0] == 0:
         return out
-    lib = _kernel_library()
-    err = lib.raster_fused_launch(
-        A.data_ptr(), chunk_bbox.data_ptr(), out.data_ptr(), B, n_chunks, H, W,
-        A.device.index, torch.cuda.current_stream(A.device).cuda_stream,
-    )
-    if err != 0:
-        msg = lib.raster_fused_error_string(err).decode()
-        raise RuntimeError(f"raster_fused kernel launch failed: {msg} ({err})")
+    _launch(A, chunk_bbox, resolution, out, pool_capacity)
     launches += 1
     return out
 

@@ -5,7 +5,11 @@ the JAX package's checkpoint files needs Flax and is not ported.
 
 Every render goes where its tensors live: a model loaded on a CUDA device
 renders with the hand-written CUDA rasterizer, a model on the CPU with its
-plain PyTorch version.
+plain PyTorch version. The entry points of the port (`load_named_model`,
+`load_detector`, `ObservationBatch.from_numpy`, `DetectionBatch.from_numpy`,
+`MeshDataBase.batched` and `.render_assets`) default to `device="cuda"`: on
+a machine without a card they fail with PyTorch's own error unless the
+caller asks for `device="cpu"`, as the tests do.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def load_named_model(
     mesh_db: MeshDataBase,
     n_points: int = 1000,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     state_dicts: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
 ) -> PoseEstimator:
     """Build a PoseEstimator for `name` on `device`.
@@ -114,7 +118,7 @@ def load_detector(
     cfg: DetectorConfig,
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
     image_size: Tuple[int, int] = (240, 320),
 ) -> Detector:
     """Build a `Detector` on `device` that runs at `image_size` (H, W).

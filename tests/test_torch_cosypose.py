@@ -125,7 +125,7 @@ def test_pose_predictor_iteration_matches_flax(pose_head):
     with torch.no_grad():
         out = model(
             torch.from_numpy(images), torch.from_numpy(K), ids, torch.from_numpy(TCO),
-            tdb.render_assets(), tdb.batched(n_points=200).select(ids),
+            tdb.render_assets(device="cpu"), tdb.batched(n_points=200, device="cpu").select(ids),
         )
     assert out.pose_raw.shape == ref.pose_raw.shape == (1, 2, 7 if pose_head == "quaternion" else 9)
     assert not np.allclose(np.asarray(ref.TCO_output), np.asarray(ref.TCO_input), atol=1e-3)
@@ -147,7 +147,8 @@ def test_identity_heads_are_no_ops():
         with torch.no_grad():
             out = model.eval()(
                 torch.from_numpy(images), torch.from_numpy(K), ids, torch.from_numpy(TCO),
-                tdb.render_assets(), tdb.batched(n_points=50).select(ids),
+                tdb.render_assets(device="cpu"),
+                tdb.batched(n_points=50, device="cpu").select(ids),
             )
         np.testing.assert_allclose(out.TCO_output[0].numpy(), TCO, atol=1e-6)
 
@@ -193,10 +194,11 @@ def runs():
             "cosypose-RGB-test", tdb, n_points=200,
             state_dicts={"refiner": pose_predictor_state_dict(refiner_vars),
                          "coarse": pose_predictor_state_dict(coarse_vars)},
+            device="cpu",
         )
         res = est.run_inference_pipeline(
-            ObservationBatch.from_numpy(rgb, K),
-            DetectionBatch.from_numpy(boxes, obj_ids, scores=scores),
+            ObservationBatch.from_numpy(rgb, K, device="cpu"),
+            DetectionBatch.from_numpy(boxes, obj_ids, scores=scores, device="cpu"),
         )
     jax_res = {k: jax.tree.map(np.asarray, v) for k, v in jax_res.items()}
     res = {k: {f.name: getattr(v, f.name).numpy() for f in dataclasses.fields(v)}
@@ -242,7 +244,7 @@ def test_cosypose_rgb_full_width_spec():
     from test_torch_models import mesh_dbs
 
     _, tdb = mesh_dbs()
-    est = torch_load_model.load_named_model("cosypose-RGB", tdb, n_points=50)
+    est = torch_load_model.load_named_model("cosypose-RGB", tdb, n_points=50, device="cpu")
     for model in (est.refiner_model, est.coarse_model):
         assert isinstance(model.backbone, backbones.WideResNet)
         assert model.backbone.conv1.in_channels == 6

@@ -180,7 +180,8 @@ def test_get_detections_matches_jax(detectors, raw, one_instance_per_class):
         detection_th=0.0, one_instance_per_class=one_instance_per_class,
     )
     detector = load_detector(td.DetectorConfig(**CFG),
-                             state_dict=detector_state_dict(variables), image_size=(H, W))
+                             state_dict=detector_state_dict(variables), image_size=(H, W),
+                             device="cpu")
     det, extra = detector.get_detections(
         ObservationBatch(rgb=torch.from_numpy(images), K=torch.from_numpy(K)),
         detection_th=0.0, one_instance_per_class=one_instance_per_class,

@@ -191,7 +191,7 @@ def _databases():
 
 def case_render_assets(rs):
     j, t = _databases()
-    ja, ta = j.render_assets(texture_size=8), t.render_assets(texture_size=8)
+    ja, ta = j.render_assets(texture_size=8), t.render_assets(texture_size=8, device="cpu")
     ids = np.asarray([1, 0, 1])
     js, ts = ja.select(jnp.asarray(ids)), ta.select(torch.from_numpy(ids))
     for k in ("faces", "faces_mask", "has_texture", "textures", "vertex_uv", "vertex_colors",
@@ -202,7 +202,7 @@ def case_render_assets(rs):
 
 def case_batched_meshes(rs):
     j, t = _databases()
-    jb, tb = j.batched(n_points=100), t.batched(n_points=100)
+    jb, tb = j.batched(n_points=100), t.batched(n_points=100, device="cpu")
     ids = np.asarray([0, 1, 1])
     js, ts = jb.select(jnp.asarray(ids)), tb.select(torch.from_numpy(ids))
     np.testing.assert_array_equal(np.asarray(js.points_mask), ts.points_mask.numpy())

@@ -176,7 +176,7 @@ def test_pose_predictor_iteration_matches_flax(role):
     with torch.no_grad():
         out = model(
             torch.from_numpy(images), torch.from_numpy(K), ids, torch.from_numpy(TCO),
-            tdb.render_assets(), tdb.batched(n_points=200).select(ids),
+            tdb.render_assets(device="cpu"), tdb.batched(n_points=200, device="cpu").select(ids),
         )
     np.testing.assert_allclose(out.boxes_crop.numpy(), np.asarray(ref.boxes_crop), atol=1e-4, rtol=0)
     np.testing.assert_allclose(out.K_crop.numpy(), np.asarray(ref.K_crop), atol=1e-4, rtol=1e-6)

@@ -50,7 +50,7 @@ def _frame(tdb):
     TCO[:, :3, 3] = [[-0.06, 0.01, 0.6], [0.06, -0.02, 0.55]]
     obj_ids = np.asarray([tdb.id_of("sphere"), tdb.id_of("box")])
     out = render_batch_fused(
-        tdb.render_assets(), torch.from_numpy(obj_ids), torch.from_numpy(TCO),
+        tdb.render_assets(device="cpu"), torch.from_numpy(obj_ids), torch.from_numpy(TCO),
         torch.from_numpy(np.stack([K, K])), resolution=FRAME,
     )
     rgb = rs.rand(H, W, 3).astype(np.float32) * 0.3
@@ -99,9 +99,11 @@ def runs():
             "megapose-RGB-test", tdb, n_points=200,
             state_dicts={"refiner": pose_predictor_state_dict(refiner_vars),
                          "coarse": pose_predictor_state_dict(coarse_vars)},
+            device="cpu",
         )
         res = est.run_inference_pipeline(
-            ObservationBatch.from_numpy(rgb, K), DetectionBatch.from_numpy(boxes, obj_ids)
+            ObservationBatch.from_numpy(rgb, K, device="cpu"),
+            DetectionBatch.from_numpy(boxes, obj_ids, device="cpu"),
         )
     jax_res = {k: jax.tree.map(np.asarray, v) for k, v in jax_res.items()}
     res = {k: {f.name: getattr(v, f.name).numpy() for f in dataclasses.fields(v)}

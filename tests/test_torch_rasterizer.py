@@ -69,7 +69,7 @@ def _render_both(jdb, tdb, obj_ids, K, TCO, jax_render, **kw):
         jnp.asarray(K), resolution=(H, W), **kw,
     )
     out = rf.render_batch_fused(
-        tdb.render_assets(texture_size=16), torch.from_numpy(obj_ids),
+        tdb.render_assets(texture_size=16, device="cpu"), torch.from_numpy(obj_ids),
         torch.from_numpy(TCO), torch.from_numpy(K), resolution=(H, W),
     )
     ref = {k: np.asarray(getattr(ref, k)) for k in ("rgb", "depth", "mask", "normals")}
@@ -171,7 +171,7 @@ def test_analytic_probe():
     K, TCO = _cameras(2, random_rotations=False)
     sphere = tdb.id_of("sphere")
     out = rf.render_batch_fused(
-        tdb.render_assets(), torch.tensor([sphere, sphere]), torch.from_numpy(TCO),
+        tdb.render_assets(device="cpu"), torch.tensor([sphere, sphere]), torch.from_numpy(TCO),
         torch.from_numpy(K), resolution=(H, W),
     )
     depth, mask = out.depth[0].numpy(), out.mask[0].numpy()
@@ -212,6 +212,204 @@ def test_large_mesh_matches_pallas_dense():
     assert mask_ok > 0.99 and min(d_ok, rgb_ok, n_ok) > 0.95, (mask_ok, d_ok, rgb_ok, n_ok)
 
 
+def _icosphere(radius=0.05, subdivisions=2):
+    """Icosahedron subdivided `subdivisions` times: faces of even size, no
+    pole slivers."""
+    from happypose_tpu_torch.meshes.io import Mesh
+
+    t = (1 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+         (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+         (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+         (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    v = [np.asarray(x, np.float64) / np.linalg.norm(x) for x in v]
+    for _ in range(subdivisions):
+        mid, nf = {}, []
+
+        def midpoint(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in mid:
+                m = v[i] + v[j]
+                v.append(m / np.linalg.norm(m))
+                mid[key] = len(v) - 1
+            return mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = nf
+    verts = (np.stack(v) * radius).astype(np.float32)
+    colors = (verts / radius * 0.5 + 0.5).astype(np.float32)
+    return Mesh(vertices=verts, faces=np.asarray(f, np.int32), vertex_colors=colors)
+
+
+def _packed_scene(scene):
+    """(A, chunk_bbox, resolution) of a seeded scene, packed by the port."""
+    res, f, z, B = (H, W), 150.0, 0.45, 4
+    if scene == "debug sphere + box":
+        _, tdb = _dbs(n_lat=24, n_lon=32)
+    elif scene == "icosphere":
+        tdb = MeshDataBase({"ico": _icosphere()})
+    elif scene == "16k-face sphere, small resolution":
+        tdb, B = MeshDataBase({"sphere": make_uv_sphere(radius=0.05, n_lat=90, n_lon=90)}), 2
+    elif scene == "ragged 45x77":
+        (_, tdb), res = _dbs(), (45, 77)
+    elif scene == "one tile holds 1200 faces":
+        # a sphere of 16 px diameter: every face of the mesh reaches one or
+        # two tiles, far more than any fixed per-tile capacity
+        tdb, f, B = MeshDataBase({"sphere": make_uv_sphere(radius=0.05, n_lat=30, n_lon=40)}), 36.0, 2
+    rs = np.random.RandomState(len(scene))
+    K = np.tile(np.asarray([[f, 0, res[1] / 2], [0, f, res[0] / 2], [0, 0, 1]], np.float32), (B, 1, 1))
+    TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    TCO[:, :3, :3] = Rotation.random(B, random_state=rs).as_matrix()
+    TCO[:, :3, 3] = [0, 0, z] + rs.randn(B, 3) * [0.02, 0.01, 0.03]
+    ids = torch.arange(B) % len(tdb.labels)
+    inst = tdb.render_assets(device="cpu").select(ids)
+    fd, attrs = rf.face_inputs(inst, torch.from_numpy(TCO), torch.from_numpy(K))
+    return (*rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, res), res)
+
+
+def _frozen_chunk_reference(
+    A: torch.Tensor, chunk_bbox: torch.Tensor, resolution
+) -> torch.Tensor:
+    """The plain version as it stood before the kernel got per-tile face
+    lists, kept unchanged: a chunk is evaluated on the tiles its union bbox
+    overlaps (no margin), every face of it at every pixel there."""
+    rf._check_packed(A, chunk_bbox, resolution)
+    H, W = resolution
+    B, n_chunks = A.shape[0], A.shape[1] // rf.CHUNK
+    dev = A.device
+    n_th, n_tw = rf._cdiv(H, rf.TILE_H), rf._cdiv(W, rf.TILE_W)
+    out = torch.zeros(B, rf.N_OUT, H, W, dtype=torch.float32, device=dev)
+    if n_chunks == 0:
+        return out
+
+    # the tiles each chunk overlaps (the kernel's block-uniform cull); the
+    # overlapping tiles of a chunk form one rectangle of whole tiles
+    tu0s = torch.arange(n_tw, device=dev, dtype=torch.float32) * rf.TILE_W
+    tv0s = torch.arange(n_th, device=dev, dtype=torch.float32) * rf.TILE_H
+    umin, vmin, umax, vmax = chunk_bbox.unbind(-1)
+    ok_u = (umax[..., None] >= tu0s) & (umin[..., None] <= tu0s + (rf.TILE_W - 1))
+    ok_v = (vmax[..., None] >= tv0s) & (vmin[..., None] <= tv0s + (rf.TILE_H - 1))
+
+    def span(ok):  # first and last overlapping tile, -1 when none
+        n = ok.shape[-1]
+        first = ok.int().argmax(-1)
+        last = n - 1 - ok.flip(-1).int().argmax(-1)
+        none = ~ok.any(-1)
+        return first.masked_fill(none, -1), last.masked_fill(none, -1)
+
+    spans = torch.stack([*span(ok_u), *span(ok_v)], dim=-1).tolist()
+
+    fidx = torch.arange(rf.CHUNK, device=dev)[:, None, None]
+    for b in range(B):
+        best = out[b, 0]
+        acc = out[b, 1:]
+        for c in range(n_chunks):
+            j0, j1, i0, i1 = spans[b][c]
+            if j0 < 0 or i0 < 0:
+                continue
+            x0, x1 = j0 * rf.TILE_W, min((j1 + 1) * rf.TILE_W, W)
+            y0, y1 = i0 * rf.TILE_H, min((i1 + 1) * rf.TILE_H, H)
+            gu = torch.arange(x0, x1, device=dev)
+            gv = torch.arange(y0, y1, device=dev)
+            tu0 = ((gu // rf.TILE_W) * rf.TILE_W).float()
+            tv0 = ((gv // rf.TILE_H) * rf.TILE_H).float()
+            pu, pv = (gu.float() - tu0), (gv.float() - tv0)
+            gu, gv = gu.float(), gv.float()
+
+            Ac = A[b, c * rf.CHUNK:(c + 1) * rf.CHUNK]  # [rf.CHUNK, 3, rf.N_ROWS]
+            a, bc, cc = Ac[:, 0], Ac[:, 1], Ac[:, 2]  # [rf.CHUNK, rf.N_ROWS]
+
+            # edge and iz rows at every pixel of the window: [rf.CHUNK, 4, h, w]
+            ra, rb, rc = (x[:, :4, None, None] for x in (a, bc, cc))
+            R = (ra * pu + rb * pv[:, None]) + ((rc + ra * tu0) + rb * tv0[:, None])
+            const = cc[:, rf.N_AFF:, None, None]  # [rf.CHUNK, 6, 1, 1]
+            iz = torch.minimum(torch.maximum(R[:, 3], const[:, 0]), const[:, 1])
+            cov = (R[:, 0] >= 0) & (R[:, 1] >= 0) & (R[:, 2] >= 0)
+            inside = (
+                (gu >= const[:, 2] - 1.0)
+                & (gu <= const[:, 4] + 1.0)
+                & (gv[:, None] >= const[:, 3] - 1.0)
+                & (gv[:, None] <= const[:, 5] + 1.0)
+            )
+            cand = torch.where(cov & inside, iz, torch.full_like(iz, -1.0))
+            cbest = cand.amax(0)  # [h, w]
+            win = torch.where(cand == cbest, fidx, rf.CHUNK).amin(0)  # [h, w]
+            # the winner's attribute rows, evaluated pixel by pixel
+            aw = a[win, 4:rf.N_AFF].permute(2, 0, 1)  # [6, h, w]
+            bw = bc[win, 4:rf.N_AFF].permute(2, 0, 1)
+            cw = cc[win, 4:rf.N_AFF].permute(2, 0, 1)
+            attr = (aw * pu + bw * pv[:, None]) + ((cw + aw * tu0) + bw * tv0[:, None])
+
+            prev = best[y0:y1, x0:x1]
+            better = (cbest > prev) & (cbest > 0)
+            best[y0:y1, x0:x1] = torch.where(better, cbest, prev)
+            acc[:, y0:y1, x0:x1] = torch.where(better, attr, acc[:, y0:y1, x0:x1])
+    return out
+
+
+
+SCENES = ["debug sphere + box", "icosphere", "16k-face sphere, small resolution",
+          "ragged 45x77", "one tile holds 1200 faces"]
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_plain_version_matches_frozen_chunk_version(scene):
+    """The plain version with per-tile lists against the frozen one that
+    culled by chunk union boxes. They may differ only where a face wins a
+    pixel up to 1 px outside its own bbox in a tile its chunk's union bbox
+    does not overlap (the frozen version's chunk cull took no margin, the
+    lists do): at most 1e-4 of the pixels. Observed: none."""
+    A, bbox, res = _packed_scene(scene)
+    new = rf.raster_fused_reference(A, bbox, res)
+    old = _frozen_chunk_reference(A, bbox, res)
+    assert (new[:, 0] > 0).float().mean() > 0.005  # the scene is not empty
+    differing = (new != old).any(dim=1).float().mean().item()
+    assert differing <= 1e-4, differing
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_lists_hold_every_face_that_can_win(scene):
+    """Per tile, the list holds every face that `inside` accepts at a pixel
+    of the tile (so every face `cov && inside` could accept), in ascending
+    packed order, and nothing a tile's chunk-and-face bbox test rejects."""
+    A, bbox, res = _packed_scene(scene)
+    count, lists = rf.bin_faces_reference(A, bbox, res)
+    n_tw = -(-res[1] // rf.TILE_W)
+    gv, gu = torch.meshgrid(torch.arange(res[0]), torch.arange(res[1]), indexing="ij")
+    tile_of_pixel = (gv // rf.TILE_H) * n_tw + gu // rf.TILE_W
+    per_tile = iter(lists.split(count.flatten().tolist()))
+    longest = 0
+    for b in range(A.shape[0]):
+        umin, vmin, umax, vmax = (A[b, :, 2, rf.N_AFF + 2 + k, None, None] for k in range(4))
+        inside = ((gu >= umin - 1.0) & (gu <= umax + 1.0)
+                  & (gv >= vmin - 1.0) & (gv <= vmax + 1.0))  # [Fp, H, W]
+        for tile in range(count.shape[1]):
+            faces = next(per_tile)
+            assert bool((faces[1:] > faces[:-1]).all())
+            needed = inside[:, tile_of_pixel == tile].any(dim=1).nonzero()[:, 0]
+            assert bool(torch.isin(needed, faces).all()), (b, tile)
+            longest = max(longest, len(faces))
+    if scene == "one tile holds 1200 faces":
+        assert longest >= 1200
+
+
+def test_dead_faces_reach_no_tile():
+    """Padding and degenerate faces carry a never-inside bbox in their
+    constant rows, so they are in no list."""
+    A, bbox, res = _packed_scene("debug sphere + box")
+    dead = (A[:, :, 0, 0] == 0) & (A[:, :, 1, 0] == 0) & (A[:, :, 2, 0] == -1.0)
+    assert dead.any()
+    for b in range(A.shape[0]):
+        _, lists = rf.bin_faces_reference(A[b:b + 1], bbox[b:b + 1], res)
+        assert len(lists) > 0 and not dead[b][lists.long()].any()
+    # labels sort to (box, sphere), so image 0 is the box: 12 live faces
+    _, lists = rf.bin_faces_reference(A[:1], bbox[:1], res)
+    assert 0 < len(lists.unique()) <= 12
+
+
 def test_cpu_tensors_take_the_plain_path():
     """On CPU tensors the wrapper runs the plain version and never counts a
     launch; a device that is neither CPU nor CUDA is refused, and so are
@@ -220,7 +418,7 @@ def test_cpu_tensors_take_the_plain_path():
     K, TCO = _cameras(2, random_rotations=False)
     before = rf.launches
     ids = torch.tensor([0, 1])
-    rf.render_batch_fused(tdb.render_assets(), ids, torch.from_numpy(TCO),
+    rf.render_batch_fused(tdb.render_assets(device="cpu"), ids, torch.from_numpy(TCO),
                           torch.from_numpy(K), resolution=(H, W))
     assert rf.launches == before
 
