@@ -1,6 +1,6 @@
 """Single-view pose estimation (PyTorch port of
-`happypose_tpu/inference/pose_estimator.py`; the depth refiners are not
-ported). Two flavours, chosen by the coarse model:
+`happypose_tpu/inference/pose_estimator.py`). Two flavours, chosen by the
+coarse model:
 
 - MegaPose (a coarse hypothesis classifier): each detection is replicated
   over the SO(3) grid with an autodepth init, every hypothesis is scored,
@@ -8,6 +8,10 @@ ported). Two flavours, chosen by the coarse model:
 - CosyPose (a coarse pose model, or none): each detection starts at the
   z-up autodepth init, the coarse model runs `n_coarse_iterations` pose
   updates, the refiner `n_refiner_iterations`.
+
+With `cfg.run_depth_refiner` and an observation that has depth, the final
+poses of either flavour are then refined against the observed depth
+(`run_depth_refiner`: ICP or GNC-TLS, one depth render of all estimates).
 
 The hypothesis axis is cut into chunks of `bsz_images` (coarse scoring)
 and `bsz_objects` (pose updates); each chunk is one model call and one
@@ -21,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from happypose_tpu_torch.inference.icp_refiner import ICPRefiner
+from happypose_tpu_torch.inference.teaser_refiner import TeaserRefiner
 from happypose_tpu_torch.inference.types import (
     DetectionBatch,
     InferenceConfig,
@@ -34,7 +40,14 @@ from happypose_tpu_torch.lib3d.pose_init import (
 from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
 from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
 from happypose_tpu_torch.models.pose_predictor import PosePredictor
+from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
+
+
+def _model_images(model: PosePredictor, obs: ObservationBatch) -> torch.Tensor:
+    """The frames `model` reads: an RGB model drops a depth channel anyway,
+    so it is not gathered once per hypothesis first."""
+    return obs.images if model.cfg.input_depth else obs.rgb
 
 
 class PoseEstimator:
@@ -66,6 +79,7 @@ class PoseEstimator:
         self.SO3_grid = torch.from_numpy(load_SO3_grid(cfg.SO3_grid_size)).to(
             assets.vertices.device
         )
+        self._depth_refiners: Dict[tuple, object] = {}
 
     # ------------------------------------------------------------------
     # MegaPose coarse: score detections x SO(3)-grid hypotheses
@@ -110,7 +124,7 @@ class PoseEstimator:
 
     def _score_hypotheses(self, obs, K, obj_ids, im_ids, TCO) -> torch.Tensor:
         """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a time."""
-        images = obs.images
+        images = _model_images(self.coarse_model, obs)
         logits = []
         for s in range(0, TCO.shape[0], self.cfg.bsz_images):
             sl = slice(s, s + self.cfg.bsz_images)
@@ -143,7 +157,7 @@ class PoseEstimator:
     ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
         """`n_iterations` pose updates of `model` on all estimates,
         `bsz_objects` at a time."""
-        images = obs.images
+        images = _model_images(model, obs)
         chunks = []
         for s in range(0, estimates.n_rows, self.cfg.bsz_objects):
             sl = slice(s, s + self.cfg.bsz_objects)
@@ -242,18 +256,29 @@ class PoseEstimator:
         per detection). CosyPose otherwise: init -> coarse iterations ->
         refiner iterations; returns "init", "coarse" (when there is a coarse
         model), "iteration=k" and "final", whose `pose_logits` are the
-        detection scores (CosyPose has no scoring model)."""
+        detection scores (CosyPose has no scoring model). With
+        `cfg.run_depth_refiner` and observed depth, "final" is refined
+        against the depth and also returned as "depth_refined"."""
         results: Dict[str, PoseEstimateBatch] = {}
-        if not self._coarse_is_classifier:
+        if self._coarse_is_classifier:
+            final = self._run_megapose(obs, detections, n_refiner_iterations,
+                                       n_pose_hypotheses, results)
+        else:
             est = results["init"] = self.make_TCO_init(obs, detections)
             if self.coarse_model is not None:
                 est, _ = self._forward_coarse_pose_model(obs, est)
                 results["coarse"] = est
             final, per_iter = self.forward_refiner(obs, est, n_refiner_iterations)
             results.update(per_iter)
-            results["final"] = dataclasses.replace(final, pose_logits=final.scores)
-            return results
+            final = dataclasses.replace(final, pose_logits=final.scores)
+        if self.cfg.run_depth_refiner and obs.depth is not None:
+            final = results["depth_refined"] = self.run_depth_refiner(obs, final)
+        results["final"] = final
+        return results
 
+    def _run_megapose(self, obs, detections, n_refiner_iterations, n_pose_hypotheses,
+                      results) -> PoseEstimateBatch:
+        """The MegaPose stages; fills `results`, returns the top-1 estimates."""
         n_hyp = n_pose_hypotheses or self.cfg.n_pose_hypotheses
         coarse = self.forward_coarse(obs, detections)
         results["coarse"] = coarse
@@ -268,5 +293,33 @@ class PoseEstimator:
         results.update(per_iter)
         scored = self.forward_scoring(obs, refined)
         results["scored"] = scored
-        results["final"] = self.filter_top_k(scored, by="pose_logits", k=1)
-        return results
+        return self.filter_top_k(scored, by="pose_logits", k=1)
+
+    @torch.inference_mode()
+    def run_depth_refiner(
+        self, obs: ObservationBatch, estimates: PoseEstimateBatch
+    ) -> PoseEstimateBatch:
+        """Refine the estimates against the observed depth, at a depth
+        resolution cut to at most about 160 px a side (strided) for a fixed
+        cost. `cfg.depth_refiner` selects "teaserpp" (GNC-TLS registration)
+        or ICP (the default). Both render through `render_batch_fused`: the
+        CUDA kernel for CUDA tensors. Only valid rows move."""
+        H, W = obs.rgb.shape[-2:]
+        scale = max(1, max(H, W) // 160)
+        h, w = H // scale, W // scale
+        depth = obs.depth[:, 0, ::scale, ::scale]
+        K_scaled = torch.cat([obs.K[:, :2] / float(scale), obs.K[:, 2:]], dim=1)
+        refiner_cls = TeaserRefiner if self.cfg.depth_refiner == "teaserpp" else ICPRefiner
+        key = (refiner_cls, (h, w))
+        refiner = self._depth_refiners.get(key)
+        if refiner is None:
+            refiner = refiner_cls(self.assets, render_batch_fused, resolution=(h, w))
+            self._depth_refiners[key] = refiner
+        poses = refiner.refine(
+            estimates.obj_ids,
+            estimates.poses,
+            K_scaled[estimates.batch_im_ids],
+            depth[estimates.batch_im_ids],
+        )
+        poses = torch.where(estimates.valid[:, None, None], poses, estimates.poses)
+        return dataclasses.replace(estimates, poses=poses)

@@ -132,8 +132,9 @@ class PoseEstimateBatch:
 class InferenceConfig:
     """Pipeline configuration: 5 refiner iterations, 1 CosyPose coarse
     iteration, an SO(3) grid of 576 and 5 kept pose hypotheses (MegaPose:
-    each refined, re-scored, then top-1), and the batch sizes the
-    hypothesis axis is cut into."""
+    each refined, re-scored, then top-1), the batch sizes the hypothesis
+    axis is cut into, and whether the final poses are refined against the
+    observed depth (`depth_refiner`: "teaserpp", anything else is ICP)."""
 
     n_refiner_iterations: int = 5
     n_coarse_iterations: int = 1  # CosyPose-style coarse
@@ -141,3 +142,5 @@ class InferenceConfig:
     SO3_grid_size: int = 576
     bsz_images: int = 288  # coarse hypotheses per forward chunk
     bsz_objects: int = 16  # refiner instances per forward chunk
+    run_depth_refiner: bool = False
+    depth_refiner: Optional[str] = None  # icp

@@ -1,15 +1,15 @@
 """Padded mesh database — fixed-shape tensors (PyTorch port of
 `happypose_tpu/meshes/database.py`).
 
-Ragged meshes are padded to [n_obj, P, 3] / [n_obj, F, 3] tensors with
-validity masks, so per-label lookups are plain index selects on the device.
+Ragged meshes are padded to [n_obj, P, 3] / [n_obj, S, 4, 4] /
+[n_obj, F, 3] tensors with validity masks, so per-label lookups are plain index selects on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,20 +44,30 @@ def _to(obj, device):
 
 @dataclass
 class BatchedMeshes:
-    """Fixed-shape per-object point sets, selectable by object id.
+    """Fixed-shape per-object point sets and symmetries, selectable by
+    object id.
 
     points: [n_obj, P, 3]; points_mask: [n_obj, P] bool (False on padding);
-    diameters: [n_obj].
+    symmetries: [n_obj, S, 4, 4], identity-padded; symmetries_mask:
+    [n_obj, S] bool; diameters: [n_obj].
     """
 
     points: torch.Tensor
     points_mask: torch.Tensor
+    symmetries: torch.Tensor
+    symmetries_mask: torch.Tensor
     diameters: torch.Tensor
+
+    @property
+    def n_sym_max(self) -> int:
+        return self.symmetries.shape[1]
 
     def select(self, obj_ids: torch.Tensor) -> "BatchedMeshes":
         return BatchedMeshes(
             points=self.points[obj_ids],
             points_mask=self.points_mask[obj_ids],
+            symmetries=self.symmetries[obj_ids],
+            symmetries_mask=self.symmetries_mask[obj_ids],
             diameters=self.diameters[obj_ids],
         )
 
@@ -103,34 +113,59 @@ class RenderAssets:
 
 
 class MeshDataBase:
-    """Host-side registry of meshes keyed by string label, compiled into
-    fixed-shape tensors. Padding is deterministic (points are cycled)."""
+    """Host-side registry of meshes and their symmetries ((S, 4, 4) arrays,
+    e.g. from `lib3d.symmetries.make_symmetries_poses`) keyed by string
+    label, compiled into fixed-shape tensors. Padding is deterministic
+    (points are cycled)."""
 
     def __init__(
         self,
         meshes: Dict[str, Mesh],
+        symmetries: Optional[Dict[str, np.ndarray]] = None,
         scales: Optional[Dict[str, float]] = None,
     ):
         self.labels: List[str] = sorted(meshes.keys())
         self.label_to_id: Dict[str, int] = {l: i for i, l in enumerate(self.labels)}
         self.meshes = meshes
+        self.symmetries = symmetries or {}
         self.scales = scales or {}
 
     def id_of(self, label: str) -> int:
         return self.label_to_id[label]
 
-    def batched(self, n_points: int = 2000, device="cuda") -> BatchedMeshes:
-        """Padded point database: `n_points` vertices per object, evenly
-        subsampled, or cycled when the mesh has fewer."""
+    def ids_of(self, labels: Sequence[str]) -> np.ndarray:
+        return np.asarray([self.label_to_id[l] for l in labels], np.int64)
+
+    def batched(
+        self,
+        n_points: int = 2000,
+        n_sym: Optional[int] = None,
+        aabb: bool = False,
+        device="cuda",
+    ) -> BatchedMeshes:
+        """Padded point and symmetry database: `n_points` vertices per
+        object, evenly subsampled, or cycled when the mesh has fewer (with
+        `aabb`, the 8 corners of its bounding box instead); `n_sym`
+        symmetry slots (default: the largest count over the objects, at
+        least 1), the identity in the unused ones."""
         n_obj = len(self.labels)
+        if aabb:
+            n_points = 8
+        if n_sym is None:
+            n_sym = max([len(s) for s in self.symmetries.values()] + [1])
         points = np.zeros((n_obj, n_points, 3), np.float32)
         points_mask = np.zeros((n_obj, n_points), bool)
+        syms = np.tile(np.eye(4, dtype=np.float32), (n_obj, n_sym, 1, 1))
+        syms_mask = np.zeros((n_obj, n_sym), bool)
+        syms_mask[:, 0] = True
         diameters = np.zeros((n_obj,), np.float32)
         for i, label in enumerate(self.labels):
             mesh = self.meshes[label]
             scale = self.scales.get(label, 1.0)
             v = mesh.vertices * scale
-            if len(v) >= n_points:
+            if aabb:
+                pts = mesh.aabb * scale
+            elif len(v) >= n_points:
                 idx = np.linspace(0, len(v) - 1, n_points).astype(np.int64)
                 pts = v[idx]
             else:
@@ -139,9 +174,16 @@ class MeshDataBase:
             points[i, : len(pts)] = pts
             points_mask[i, : len(pts)] = True
             diameters[i] = mesh.diameter * scale
+            S = self.symmetries.get(label)
+            if S is not None and len(S) > 0:
+                S = np.asarray(S, np.float32)[:n_sym]
+                syms[i, : len(S)] = S
+                syms_mask[i, : len(S)] = True
         return BatchedMeshes(
             points=torch.from_numpy(points),
             points_mask=torch.from_numpy(points_mask),
+            symmetries=torch.from_numpy(syms),
+            symmetries_mask=torch.from_numpy(syms_mask),
             diameters=torch.from_numpy(diameters),
         ).to(device)
 

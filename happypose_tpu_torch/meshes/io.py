@@ -55,6 +55,17 @@ class Mesh:
             self.vertex_normals_ = (vn / np.maximum(norm, 1e-12)).astype(np.float32)
         return self.vertex_normals_
 
+    @property
+    def aabb(self) -> np.ndarray:
+        """8 corner points of the axis-aligned bounding box, [8, 3]."""
+        lo = self.vertices.min(0)
+        hi = self.vertices.max(0)
+        return np.array(
+            [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+             for z in (lo[2], hi[2])],
+            dtype=np.float32,
+        )
+
     def sample_texture_at_uv(self, uv: np.ndarray) -> np.ndarray:
         """Bilinear texture lookup at [N, 2] uv coords -> [N, 3] RGB."""
         th, tw = self.texture.shape[:2]

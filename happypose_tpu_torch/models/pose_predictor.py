@@ -4,8 +4,10 @@
 One iteration: crop the observation around the reprojected model points,
 render the object at the current pose in the crop camera (the hand-written
 CUDA rasterizer for CUDA tensors), run the backbone (ResNet34 for
-MegaPose, WideResNet18/34 for CosyPose) on [crop, rgb render, normals
-render when configured], then either apply the SE(3) update of the pose
+MegaPose, WideResNet18/34 for CosyPose) on [crop (with its depth channel
+when `input_depth`), rgb render, normals and depth renders when
+configured; depth channels normalized by the reference point's depth],
+then either apply the SE(3) update of the pose
 head (ortho6d or quaternion; the refiner and the CosyPose coarse model) or
 return the rendered-view logits (MegaPose coarse hypothesis classifier).
 The pose head starts at the identity update, so an untrained refiner is a
@@ -59,6 +61,10 @@ class PosePredictorConfig:
     remove_TCO_rendering: bool = False
     views_inplane_rotations: bool = False
     render_normals: bool = True
+    render_depth: bool = False
+    input_depth: bool = False
+    # tCR_scale | tCR_scale_clamp_center | tCR_center_clamp | none
+    depth_normalization_type: str = "tCR_scale_clamp_center"
     predict_pose_update: bool = True
     predict_rendered_views_logits: bool = False
     # ortho6d (9 outputs) | quaternion (7 outputs, the CosyPose models' head)
@@ -77,7 +83,7 @@ class PosePredictorConfig:
 
     @property
     def n_render_channels(self) -> int:
-        return 3 + (3 if self.render_normals else 0)
+        return 3 + (3 if self.render_normals else 0) + (1 if self.render_depth else 0)
 
 
 @dataclass
@@ -99,7 +105,7 @@ class PosePredictor(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.backbone = _BACKBONES[cfg.backbone](
-            n_inputs=3 + cfg.n_views * cfg.n_render_channels
+            n_inputs=3 + (1 if cfg.input_depth else 0) + cfg.n_views * cfg.n_render_channels
         )
         n_features = self.backbone.n_features
         if cfg.predict_pose_update:
@@ -175,8 +181,39 @@ class PosePredictor(nn.Module):
         chans = [out.rgb]
         if self.cfg.render_normals:
             chans.append(out.normals)
+        if self.cfg.render_depth:
+            chans.append(out.depth[..., None])
         r = torch.cat(chans, dim=-1).permute(0, 3, 1, 2)  # [BV, C, h, w]
         return r.reshape(B, -1, *r.shape[-2:])
+
+    def _normalize_depth(self, depth, tCR):
+        """depth [B, n, h, w] relative to the reference point's depth tCR_z."""
+        z = tCR[:, 2, None, None, None]
+        t = self.cfg.depth_normalization_type
+        if t == "tCR_scale":
+            return depth / z
+        if t == "tCR_scale_clamp_center":
+            return torch.clamp(depth / z, 0.0, 2.0) - 1.0
+        if t == "tCR_center_clamp":
+            return torch.clamp(depth - z, -2.0, 2.0)
+        if t == "none":
+            return depth
+        raise ValueError(f"unknown depth_normalization_type: {t}")
+
+    def _normalize_images(self, images_crop, renders, tCR):
+        """Normalize the crop's depth channel and every view's depth render."""
+        cfg = self.cfg
+        if cfg.input_depth:
+            images_crop = torch.cat(
+                [images_crop[:, :3], self._normalize_depth(images_crop[:, 3:4], tCR)], dim=1
+            )
+        if cfg.render_depth:
+            B, _, h, w = renders.shape
+            r = renders.reshape(B, cfg.n_views, cfg.n_render_channels, h, w)
+            renders = torch.cat(
+                [r[:, :, :-1], self._normalize_depth(r[:, :, -1], tCR)[:, :, None]], dim=2
+            ).reshape(B, -1, h, w)
+        return images_crop, renders
 
     # ---------- one iteration ----------
 
@@ -200,6 +237,7 @@ class PosePredictor(nn.Module):
         if not cfg.remove_TCO_rendering:
             KV_crop = torch.cat([K_crop[:, None], KV_crop[:, 1:]], dim=1)
         renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
+        images_crop, renders = self._normalize_images(images_crop, renders, tCR)
 
         feats = self.backbone(torch.cat([images_crop, renders], dim=1))
         if cfg.predict_pose_update:
@@ -236,7 +274,8 @@ class PosePredictor(nn.Module):
         meshes: BatchedMeshes,  # per instance (select(obj_ids))
         n_iterations: int = 1,
     ) -> PoseOutputs:
-        images = images[:, :3]
+        if not self.cfg.input_depth:
+            images = images[:, :3]
         outs = []
         TCO = TCO_input
         for _ in range(n_iterations):

@@ -37,6 +37,7 @@ class NamedModelSpec:
     refiner_cfg: PosePredictorConfig
     coarse_cfg: Optional[PosePredictorConfig]
     inference_cfg: InferenceConfig
+    requires_depth: bool = False
 
 
 NAMED_MODELS: Dict[str, NamedModelSpec] = {

@@ -3,6 +3,7 @@ CPU: their `device` defaults are "cuda" (read from the signatures, so no
 card is needed), nothing in the port picks the CPU because no card is
 present, and the kernel wrappers count a launch only where they launch."""
 
+import ast
 import inspect
 import re
 from pathlib import Path
@@ -40,6 +41,62 @@ def test_port_never_falls_back_to_the_cpu():
         text = path.read_text()
         assert "is_available" not in text, path
         assert not re.search(r"device\s*(:[^=,)]+)?=\s*[\"']cpu[\"']\s*[,)]", text), path
+
+
+# modules whose functions get tensors (or a mesh database) from the caller
+# and have no `device` parameter: they work where their inputs live
+FOLLOWERS = [
+    "inference/icp_refiner.py", "inference/teaser_refiner.py", "evaluation/meters.py",
+    "evaluation/bop19.py", "ops/roi_align.py", "ops/rasterizer.py", "ops/segment_ops.py",
+    "lib3d/distances.py", "lib3d/rotations.py",
+]
+CREATORS = {"arange", "eye", "full", "zeros", "ones", "rand", "randn", "tensor", "as_tensor",
+            "empty", "linspace", "Generator"}
+
+
+@pytest.mark.parametrize("module", FOLLOWERS)
+def test_module_follows_its_inputs_device(module):
+    """Every call that makes a new tensor (`torch.arange`, `torch.eye`,
+    `torch.rand`, `torch.as_tensor`, ...; the `*_like` forms inherit it)
+    or a `torch.Generator` names its device, so nothing lands on the CPU
+    because that is PyTorch's default; and no function of the module takes a
+    `device` argument it could default."""
+    path = Path(happypose_tpu_torch.__file__).parent / module
+    tree = ast.parse(path.read_text())
+    calls = [
+        n for n in ast.walk(tree)
+        if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+        and isinstance(n.func.value, ast.Name) and n.func.value.id == "torch"
+        and n.func.attr in CREATORS
+    ]
+    for call in calls:
+        assert any(k.arg == "device" for k in call.keywords), (
+            f"{module}:{call.lineno}: torch.{call.func.attr} without device=")
+    for fn in (n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)):
+        names = [a.arg for a in fn.args.args + fn.args.kwonlyargs]
+        assert "device" not in names or fn.name == "default_generator", f"{module}: {fn.name}"
+
+
+def test_depth_refiners_and_evaluators_take_their_device_from_their_inputs():
+    """The refiners' default generator lives on the poses' device; the
+    refiners, `PoseErrorMeter`, `Bop19Evaluator` and `vsd_batch` have no
+    `device` parameter: they compute where the assets and the mesh database
+    they were given live. The pipeline's depth refiner renders through
+    `render_batch_fused`, which launches the CUDA kernel for CUDA tensors
+    or raises."""
+    from happypose_tpu_torch.evaluation import bop19, meters
+    from happypose_tpu_torch.inference import icp_refiner, pose_estimator, teaser_refiner
+
+    assert icp_refiner.default_generator(torch.device("cpu")).device == torch.device("cpu")
+    for fn in (icp_refiner.ICPRefiner.refine, teaser_refiner.TeaserRefiner.refine,
+               icp_refiner.ICPRefiner.__init__, teaser_refiner.TeaserRefiner.__init__,
+               meters.PoseErrorMeter.add, bop19.Bop19Evaluator.add_image, bop19.vsd_batch,
+               pose_estimator.PoseEstimator.run_depth_refiner):
+        assert "device" not in inspect.signature(fn).parameters, fn
+    assert list(inspect.signature(icp_refiner.ICPRefiner.refine).parameters)[-1] == "generator"
+    source = inspect.getsource(pose_estimator.PoseEstimator.run_depth_refiner)
+    assert "render_batch_fused" in source and "render_batch," not in source
+    assert bop19.render_batch_fused is rf.render_batch_fused
 
 
 @pytest.mark.parametrize("wrapper", ["raster_fused", "bin_faces"])

@@ -188,3 +188,63 @@ def test_pose_predictor_iteration_matches_flax(role):
         np.testing.assert_allclose(
             out.renderings_logits.numpy(), np.asarray(ref.renderings_logits), atol=1e-4, rtol=1e-4
         )
+
+
+@pytest.mark.parametrize(
+    "norm_type", ["tCR_scale", "tCR_scale_clamp_center", "tCR_center_clamp", "none"]
+)
+def test_pose_predictor_depth_channels_match_flax(norm_type):
+    """One refiner iteration with `input_depth` and `render_depth`: the crop
+    carries the observed depth (with holes) as a 4th channel through
+    `crop_images_matmul`, each view renders a depth channel, and both are
+    normalized by the reference point's depth. The first convolution then
+    has 4 + 7 input channels; its Flax kernel carries over by shape.
+    `TCO_output` to 1e-5. A crop pixel's depth is zeroed where its
+    validity crop is under 0.99; XLA's fused multiply-adds move sample
+    positions by an ulp, so the test first checks that no pixel of this
+    input sits within 1e-4 of that threshold."""
+    jdb, tdb, images, K, TCO, obj_ids = _scene()
+    rs = np.random.RandomState(5)
+    depth = (0.4 + 0.2 * rs.rand(2, 1, H, W)).astype(np.float32)
+    depth[:, :, 20:40, 30:60] = 0.0  # a hole in the observed depth
+    images = np.concatenate([images, depth], axis=1)
+    kw = dict(render_size=RENDER, render_normals=True, render_depth=True, input_depth=True,
+              depth_normalization_type=norm_type)
+    jax_model = JaxPosePredictor(JaxConfig(backbone="resnet34", renderer="pallas_interpret", **kw))
+    j_assets, j_meshes = jdb.render_assets(), jdb.batched(n_points=200)
+    args = (
+        jnp.asarray(images), jnp.asarray(K), jnp.asarray(obj_ids), jnp.asarray(TCO),
+        j_assets, j_meshes.select(jnp.asarray(obj_ids)),
+    )
+    variables = perturb(jax_model.init(jax.random.PRNGKey(0), *args), seed=2)
+    ref = jax_model.apply(variables, *args, n_iterations=1)
+
+    cfg = PosePredictorConfig(**kw)
+    assert cfg.n_render_channels == 7
+    model = PosePredictor(cfg).eval()
+    model.load_state_dict(pose_predictor_state_dict(variables))
+    assert model.backbone.conv1.weight.shape[1] == 4 + 7
+    ids = torch.from_numpy(obj_ids)
+    meshes = tdb.batched(n_points=200, device="cpu").select(ids)
+    with torch.no_grad():
+        t_images, t_K, t_TCO = (torch.from_numpy(x) for x in (images, K, TCO))
+        out = model(t_images, t_K, ids, t_TCO, tdb.render_assets(device="cpu"), meshes)
+        # the crop the model saw: its depth channel has zeroed pixels, and
+        # none of them is decided by a validity within 1e-4 of 0.99
+        crop, _, _, boxes = model._crop_inputs(
+            t_images, t_K, out.TCO_input[0], out.tCR[0], meshes.points, meshes.points_mask)
+        from happypose_tpu_torch.ops.crop_resize import roi_align_matmul
+        validity = roi_align_matmul((t_images[:, 3:4] > 0).float(), boxes, RENDER, 4)
+    assert (crop[:, 3] == 0).any() and (crop[:, 3] > 0).any()
+    assert (validity - 0.99).abs().min() > 1e-4
+    np.testing.assert_allclose(out.K_crop.numpy(), np.asarray(ref.K_crop), atol=1e-4, rtol=1e-6)
+    assert not np.allclose(np.asarray(ref.TCO_output), np.asarray(ref.TCO_input), atol=1e-4)
+    np.testing.assert_allclose(out.pose_raw.numpy(), np.asarray(ref.pose_raw), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(out.TCO_output.numpy(), np.asarray(ref.TCO_output), atol=1e-5, rtol=0)
+
+
+def test_unknown_depth_normalization_raises():
+    model = PosePredictor(PosePredictorConfig(
+        render_size=RENDER, input_depth=True, depth_normalization_type="nope"))
+    with pytest.raises(ValueError, match="depth_normalization_type"):
+        model._normalize_depth(torch.ones(1, 1, 2, 2), torch.ones(1, 3))

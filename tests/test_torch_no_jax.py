@@ -18,7 +18,12 @@ def test_port_imports_no_jax():
         )
     )
     for name in ("ops.rasterizer_fused", "utils.weights_from_jax", "models.detector",
-                 "inference.detector", "datasets.augmentations"):
+                 "inference.detector", "datasets.augmentations",
+                 "lib3d.rotations", "lib3d.symmetries", "lib3d.distances", "ops.segment_ops",
+                 "ops.rasterizer", "ops.roi_align", "models.pose_predictor",
+                 "inference.icp_refiner", "inference.teaser_refiner", "inference.types",
+                 "inference.pose_estimator", "evaluation.meters", "evaluation.bop19",
+                 "utils.load_model"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
