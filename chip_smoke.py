@@ -8,7 +8,8 @@ Phases (any failure raises, so the exit code is nonzero):
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Needs `torch.cuda.is_available()`.
 2. Build: `happypose_tpu_torch/csrc/raster_fused.cu` with nvcc for sm_90a;
-   what `-Xptxas -v` says of each kernel (registers, shared memory, spills).
+   what `-Xptxas -v` says of each kernel (registers, shared memory, spills);
+   `csrc/fastply.cpp` (the host-side PLY decoder) with g++.
 3. Kernels against their plain versions on the same CUDA tensors, with
    seeded poses, on the ~1.5k-face debug mesh (UV sphere 24x32 + box) and a
    ~16k-face sphere: at 240x320 at the refiner's batch (B = 16) and the
@@ -74,8 +75,42 @@ Phases (any failure raises, so the exit code is nonzero):
    the card's and the CPU's random subsamples are the same set), on the
    card and on the CPU: depth-refined translations within `RGBD_ATOL`.
 
-Prints the nvidia-smi line and a JSON line of kernel results, and as its
-last line `{"ok": true, "device": {...}}`. TF32 is off throughout.
+14. A textured model through the kernel: a UV sphere with texture
+   coordinates and a seeded 256x256 procedural texture, written by
+   `save_ply` (a `TextureFile` PLY and its PNG), read back by
+   `BOPObjectDataset`. The kernel carries uv in the colour slots: lists and
+   output against the plain versions at 240x320, B = 16 (expected equal),
+   time beside the bound; then the resolved rgb of `render_batch_fused` on
+   the card against its CPU run (`TEXTURE_ATOL`).
+15. A BOP dataset written and read here, in a temporary directory:
+   `write_bop_models` (the textured sphere, a box, a capsule decimated from
+   ~25k to under 3000 faces; the kernel is held to its plain version at
+   the decimated model's shape too) and `write_bop_scene` of 8 frames at
+   480x640 with 2-3 instances each from one `render_scenes` call (one
+   launch), with boxes and `visib_fract` from the merged masks. Read back:
+   rgb equal, depth within 1 mm, poses within 1e-6 m, the PLYs' vertices
+   equal, both PLY parsers (the native one built here with g++) agree; the
+   reader's frames a second.
+16. `scripts.run_eval` on that directory at full width (`--model
+   megapose-RGB --detections gt --bop19`, on the card by default): the
+   launch counter shows every frame's renders plus 2 a scored image; finite
+   poses; the summary and the BOP csv are written and the csv returns the
+   runner's poses to 1e-6; the per-frame seconds after the first lie within
+   2x of phase 4's s/image (read after a synchronization, so not near 0).
+   Then the ground-truth poses through the same runner and metrics: AR = 1.
+17. The detector in front: `run_eval --model cosypose-RGB --detections
+   detector` with all three models read from run directories of the port
+   (`config.json` + `state_dict.pt`, seeded weights, threshold 0), and
+   `run_detection_eval` on the same split (COCO json read back, `n_gt` =
+   the instances written).
+18. `run_eval` cut to 64x128 renders, a 72-rotation grid, top-2, 2
+   iterations and 2 frames, `--device cuda` against `--device cpu`.
+19. `run_inference_on_example --make-example` on the card: the three
+   output files exist and the overlay PNG decodes.
+
+Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
+nvidia-smi line and a JSON line of kernel results, and as its last line
+`{"ok": true, "device": {...}}`. TF32 is off throughout.
 """
 
 from __future__ import annotations
@@ -86,6 +121,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -248,6 +284,12 @@ def phase_build() -> None:
     for line in build_log("raster_fused").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("  " + line.replace("ptxas info    : ", "").strip())
+    from happypose_tpu_torch.csrc import fastply
+
+    t0 = time.perf_counter()
+    path = fastply.build()
+    assert path is not None, "no g++: csrc/fastply.cpp was not built"
+    log(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
 
 
 # the kernels of csrc/raster_fused.cu, and the single kernel it had before
@@ -280,60 +322,69 @@ def _agreement(out, ref):
     return same.float().mean().item(), (out - ref).abs().max().item()
 
 
-def phase_kernel(dev) -> dict:
+def _check_shape(name: str, A, bbox, res, n_plain=None, min_hit=None) -> tuple:
+    """One kernel shape: the face lists against `bin_faces_reference`, the
+    output against `raster_fused_reference` (all images, or the first
+    `n_plain`), a pool too small for the lists, then the time beside the
+    bound. Returns (the shape's record, max abs err)."""
     from happypose_tpu_torch.ops import rasterizer_fused as rf
 
+    out = rf.raster_fused(A, bbox, res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+
+    count, lists = rf.bin_faces(A, bbox, res)
+    count_ref, lists_ref = rf.bin_faces_reference(A, bbox, res)
+    assert torch.equal(count, count_ref) and torch.equal(lists, lists_ref), \
+        f"{name}: the face lists differ from the plain version's"
+    bound = raster_bound(A, bbox, out)
+    line = (f"; lists = plain lists, mean {count.float().mean():.1f} max "
+            f"{int(count.max())} faces a tile, {(count == 0).float().mean():.3f} of "
+            f"{count.numel()} tiles empty")
+    shape = dict(bound)
+
+    # every tile unlisted, and a pool that holds some of the lists
+    for cap in (0, int(count.sum()) // 2):
+        frac, err = _agreement(rf.raster_fused(A, bbox, res, pool_capacity=cap), out)
+        assert frac == 1.0 and err == 0.0, f"{name}: pool of {cap} changes the result"
+
+    if n_plain is None:
+        ref = rf.raster_fused_reference(A, bbox, res)
+        plain_ms = cuda_ms(lambda: rf.raster_fused_reference(A, bbox, res), n_runs=3)
+        shape["plain_ms"] = plain_ms
+        hit = (ref[:, 0] > 0).float().mean().item()
+        # a crop is filled by its object; in a frame the objects are small
+        if min_hit is None:
+            min_hit = 0.05 if res == RES else 0.005
+        assert hit > min_hit, f"{name}: the scene covers only {hit:.3f} of the pixels"
+        line += f"; plain {plain_ms:.3f} ms, covered {hit:.3f}"
+    else:
+        # the plain version of the whole batch would take minutes
+        out = out[:n_plain]
+        ref = rf.raster_fused_reference(
+            A[:n_plain].contiguous(), bbox[:n_plain].contiguous(), res)
+        line += f"; plain version on the first {n_plain} images"
+    frac, err = _agreement(out, ref)
+    line += f"; agree on {frac:.6f} of pixels, max abs err {err:.3g}"
+    assert math.isfinite(err)
+    assert frac >= MATCH_FRACTION, f"{name}: kernel agrees on {frac} of pixels"
+    # timed last, when the comparisons have brought the card's clocks up
+    ms = cuda_ms(lambda: rf.raster_fused(A, bbox, res), n_runs=10, n_warmup=2)
+    shape.update(ms=ms, share_of_bound=bound["bound_ms"] / ms)
+    log(f"kernel {name} {res[0]}x{res[1]} chunks={A.shape[1] // rf.CHUNK}: {ms:.3f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: bytes "
+        f"{bound['bytes_ms']:.4f}, operations {bound['ops_ms']:.4f}), share "
+        f"{shape['share_of_bound']:.3f}" + line)
+    return shape, err
+
+
+def phase_kernel(dev) -> dict:
     result = {"max_abs_err": 0.0, "shapes": {}}
     for mesh, B, res, f, n_plain in KERNEL_SHAPES:
         name = shape_name(mesh, B, res)
         A, bbox = kernel_inputs(mesh, B, dev, res, f)
-        out = rf.raster_fused(A, bbox, res)
-        torch.cuda.synchronize()
-        assert torch.isfinite(out).all()
-
-        count, lists = rf.bin_faces(A, bbox, res)
-        count_ref, lists_ref = rf.bin_faces_reference(A, bbox, res)
-        assert torch.equal(count, count_ref) and torch.equal(lists, lists_ref), \
-            f"{name}: the face lists differ from the plain version's"
-        bound = raster_bound(A, bbox, out)
-        line = (f"; lists = plain lists, mean {count.float().mean():.1f} max "
-                f"{int(count.max())} faces a tile, {(count == 0).float().mean():.3f} of "
-                f"{count.numel()} tiles empty")
-        shape = dict(bound)
-        result["shapes"][name] = shape
-
-        # every tile unlisted, and a pool that holds some of the lists
-        for cap in (0, int(count.sum()) // 2):
-            frac, err = _agreement(rf.raster_fused(A, bbox, res, pool_capacity=cap), out)
-            assert frac == 1.0 and err == 0.0, f"{name}: pool of {cap} changes the result"
-
-        if n_plain is None:
-            ref = rf.raster_fused_reference(A, bbox, res)
-            plain_ms = cuda_ms(lambda: rf.raster_fused_reference(A, bbox, res), n_runs=3)
-            shape["plain_ms"] = plain_ms
-            hit = (ref[:, 0] > 0).float().mean().item()
-            # a crop is filled by its object; in a frame the objects are small
-            assert hit > (0.05 if res == RES else 0.005), \
-                f"{name}: the scene covers only {hit:.3f} of the pixels"
-            line += f"; plain {plain_ms:.3f} ms, covered {hit:.3f}"
-        else:
-            # the plain version of the whole batch would take minutes
-            out = out[:n_plain]
-            ref = rf.raster_fused_reference(
-                A[:n_plain].contiguous(), bbox[:n_plain].contiguous(), res)
-            line += f"; plain version on the first {n_plain} images"
-        frac, err = _agreement(out, ref)
-        line += f"; agree on {frac:.6f} of pixels, max abs err {err:.3g}"
-        assert math.isfinite(err)
-        assert frac >= MATCH_FRACTION, f"{name}: kernel agrees on {frac} of pixels"
+        result["shapes"][name], err = _check_shape(name, A, bbox, res, n_plain)
         result["max_abs_err"] = max(result["max_abs_err"], err)
-        # timed last, when the comparisons have brought the card's clocks up
-        ms = cuda_ms(lambda: rf.raster_fused(A, bbox, res), n_runs=10, n_warmup=2)
-        shape.update(ms=ms, share_of_bound=bound["bound_ms"] / ms)
-        log(f"kernel {name} {res[0]}x{res[1]} chunks={A.shape[1] // rf.CHUNK}: {ms:.3f} ms, "
-            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: bytes "
-            f"{bound['bytes_ms']:.4f}, operations {bound['ops_ms']:.4f}), share "
-            f"{shape['share_of_bound']:.3f}" + line)
     main_shape = result["shapes"][shape_name("debug_1.5k", BATCHES[0], RES)]
     result.update({k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")})
     return result
@@ -347,6 +398,7 @@ def _synthetic_rgbd_frame(db, dev, seed=0, res=FRAME_RES):
     Returns (observation, detections, ground-truth poses, object ids)."""
     from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
     from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
+    from happypose_tpu_torch.ops.scene_renderer import render_scenes
 
     H, W = res
     f = 600.0 * W / 640
@@ -354,16 +406,18 @@ def _synthetic_rgbd_frame(db, dev, seed=0, res=FRAME_RES):
     TCO = random_poses(2, seed=seed, z=(0.5, 0.5)).to(dev)
     TCO[:, 0, 3] = torch.tensor([-0.08, 0.08])
     ids = torch.tensor([db.id_of("sphere"), db.id_of("box")], device=dev)
-    out = render_batch_fused(db.render_assets(device=dev), ids, TCO, K.expand(2, 3, 3),
-                             resolution=(H, W))
+    assets = db.render_assets(device=dev)
+    out = render_batch_fused(assets, ids, TCO, K.expand(2, 3, 3), resolution=(H, W))
+    scene = render_scenes(
+        assets, ids, torch.zeros(2, dtype=torch.int64, device=dev), TCO, K.expand(2, 3, 3),
+        torch.ones(2, dtype=torch.bool, device=dev), n_scenes=1, resolution=(H, W))
     g = torch.Generator().manual_seed(seed)
-    rgb = (torch.rand(H, W, 3, generator=g) * 0.3).to(dev)
-    far = torch.where(out.mask, out.depth, torch.full_like(out.depth, torch.inf)).amin(dim=0)
-    depth = torch.where(torch.isfinite(far), far, torch.zeros_like(far))
+    noise = (torch.rand(H, W, 3, generator=g) * 0.3).to(dev)
+    rgb = torch.where(scene.mask[0, ..., None], scene.rgb[0], noise)
+    depth = scene.depth[0]
     boxes = []
     for i in range(2):
         m = out.mask[i]
-        rgb[m] = out.rgb[i][m]
         ys, xs = torch.nonzero(m, as_tuple=True)
         pad = round(3 * W / 640)  # 3 px at 480x640
         boxes.append([xs.min().item() - pad, ys.min().item() - pad,
@@ -381,8 +435,8 @@ def _synthetic_frame(db, dev, seed=0):
 
 
 def _load(name, db, dev, seed=0, head_noise=3e-3):
-    """Seeded estimator whose pose heads are perturbed by N(0, head_noise)
-    (a fresh head is an identity update)."""
+    """Seeded estimator (`name`: a named model or a spec) whose pose heads
+    are perturbed by N(0, head_noise) (a fresh head is an identity update)."""
     from happypose_tpu_torch.utils.load_model import load_named_model
 
     est = load_named_model(name, db, n_points=1000, seed=seed, device=dev)
@@ -408,25 +462,32 @@ def _fmt(times) -> str:
     return f"{statistics.median(times):.4f} (runs {', '.join(f'{t:.4f}' for t in times)})"
 
 
-def _megapose_launches(est, D: int) -> int:
-    """Renders of one megapose frame with D detections: coarse chunks,
-    refiner chunks x iterations, scoring chunks."""
-    cfg = est.cfg
+def _frame_launches(cfg, D: int, grid_size=None) -> int:
+    """Renders of one frame with D detections under the inference config
+    `cfg`. MegaPose (`grid_size` rotations a detection): coarse chunks,
+    refiner chunks x iterations, scoring chunks. CosyPose (no grid): one
+    render a chunk and iteration of the coarse model and the refiner."""
+    if grid_size is None:
+        return math.ceil(D / cfg.bsz_objects) * (cfg.n_coarse_iterations + cfg.n_refiner_iterations)
     n_refine = D * cfg.n_pose_hypotheses
     return (
-        math.ceil(est.SO3_grid.shape[0] * D / cfg.bsz_images)
+        math.ceil(grid_size * D / cfg.bsz_images)
         + math.ceil(n_refine / cfg.bsz_objects) * cfg.n_refiner_iterations
         + math.ceil(n_refine / cfg.bsz_images)
     )
 
 
-def _small_megapose(name: str, **inference_kw) -> str:
-    """Registers megapose-RGB cut to 64x128 renders, a 72-rotation grid,
-    top-2 and 2 iterations under `name`."""
+def _megapose_launches(est, D: int) -> int:
+    return _frame_launches(est.cfg, D, est.SO3_grid.shape[0])
+
+
+def _small_megapose(**inference_kw):
+    """The megapose-RGB spec cut to 64x128 renders, a 72-rotation grid,
+    top-2 and 2 iterations."""
     from happypose_tpu_torch.utils import load_model as lm
 
     spec = lm.NAMED_MODELS["megapose-RGB"]
-    lm.NAMED_MODELS[name] = dataclasses.replace(
+    return dataclasses.replace(
         spec,
         refiner_cfg=dataclasses.replace(spec.refiner_cfg, render_size=(64, 128)),
         coarse_cfg=dataclasses.replace(spec.coarse_cfg, render_size=(64, 128)),
@@ -435,10 +496,9 @@ def _small_megapose(name: str, **inference_kw) -> str:
             **inference_kw,
         ),
     )
-    return name
 
 
-def phase_pipeline(dev) -> int:
+def phase_pipeline(dev) -> tuple:
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.ops import rasterizer_fused as rf
@@ -485,7 +545,7 @@ def phase_pipeline(dev) -> int:
     times = [t_run] + [_timed(lambda: est.run_inference_pipeline(obs, det))[1] for _ in range(2)]
     log(f"pipeline: warm s/image {_fmt(times)}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, statistics.median(times)
 
 
 def _moved_poses(TCO, seed=3, t_sigma=0.006, rot_deg=3.0):
@@ -761,7 +821,7 @@ def phase_rgbd_small_cross_check(dev) -> None:
     from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 
     res = (48, 64)
-    name = _small_megapose("megapose-RGBD-small", run_depth_refiner=True, depth_refiner="icp")
+    name = _small_megapose(run_depth_refiner=True, depth_refiner="icp")
     db = debug_mesh_db(MeshDataBase, io)
     runs = []
     for d in (dev, torch.device("cpu")):
@@ -802,7 +862,7 @@ def phase_small_cross_check(dev) -> None:
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
 
-    name = _small_megapose("megapose-RGB-small")
+    name = _small_megapose()
     db = debug_mesh_db(MeshDataBase, io)
     g, c = (
         _load(name, db, d).run_inference_pipeline(*_synthetic_frame(db, d, seed=1))
@@ -890,7 +950,7 @@ def phase_cosypose(dev) -> int:
     est = _load("cosypose-RGB", db, dev)
     cfg = est.cfg
     D = det.n_rows
-    expected = math.ceil(D / cfg.bsz_objects) * (cfg.n_coarse_iterations + cfg.n_refiner_iterations)
+    expected = _frame_launches(cfg, D)
     log(f"cosypose: cosypose-RGB, {est.refiner_model.cfg.backbone}, render "
         f"{est.refiner_model.cfg.render_size}, {cfg.n_coarse_iterations} coarse + "
         f"{cfg.n_refiner_iterations} refiner iterations, D={D}")
@@ -931,26 +991,10 @@ def phase_cosypose(dev) -> int:
     return launches
 
 
-def _boxes_to_frame(det, K_frame, K_det):
-    """Boxes predicted in the detector's crop, mapped back to the frame
-    (the evaluation runner's inverse of the aspect crop)."""
-    from happypose_tpu_torch.inference.types import DetectionBatch
-
-    s = (K_det[0, 0] / K_frame[0, 0]).item()
-    offx = (K_det[0, 2] - K_frame[0, 2] * s).item()
-    offy = (K_det[1, 2] - K_frame[1, 2] * s).item()
-    boxes = det.boxes.cpu().numpy().copy()
-    boxes[:, 0::2] = (boxes[:, 0::2] - offx) / s
-    boxes[:, 1::2] = (boxes[:, 1::2] - offy) / s
-    return DetectionBatch.from_numpy(
-        boxes=boxes, obj_ids=det.obj_ids.cpu().numpy(), scores=det.scores.cpu().numpy(),
-        device=det.boxes.device,
-    )
-
-
 def phase_chained(dev) -> int:
     """Detector -> box mapping -> cosypose-RGB, all on the card."""
-    from happypose_tpu_torch.inference.types import ObservationBatch
+    from happypose_tpu_torch.evaluation.prediction_runner import boxes_to_frame
+    from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.models.detector import DetectorConfig
@@ -967,7 +1011,11 @@ def phase_chained(dev) -> int:
         det, _ = detector.get_detections(
             ObservationBatch(rgb=x, K=K), detection_th=0.0, one_instance_per_class=True,
         )
-        return _boxes_to_frame(det, obs.K[0], K[0])
+        return DetectionBatch.from_numpy(
+            boxes=boxes_to_frame(det.boxes.cpu().numpy(), obs.K[0].cpu().numpy(),
+                                 K[0].cpu().numpy()),
+            obj_ids=det.obj_ids.cpu().numpy(), scores=det.scores.cpu().numpy(), device=dev,
+        )
 
     detect()  # warm-up
     est.run_inference_pipeline(obs, detect())
@@ -983,8 +1031,7 @@ def phase_chained(dev) -> int:
     assert det.n_rows >= 1 and torch.isfinite(det.boxes).all()
     assert final.poses.shape == (det.n_rows, 4, 4) and torch.isfinite(final.poses).all()
     assert bool(final.valid.all())
-    expected = math.ceil(det.n_rows / est.cfg.bsz_objects) * (
-        est.cfg.n_coarse_iterations + est.cfg.n_refiner_iterations)
+    expected = _frame_launches(est.cfg, det.n_rows)
     assert launches == expected, f"kernel launches {launches} != {expected}"
     return launches
 
@@ -998,7 +1045,7 @@ def phase_cosypose_small_cross_check(dev) -> None:
 
     spec = lm.NAMED_MODELS["cosypose-RGB"]
     small = {"backbone": "wide_resnet18", "render_size": (64, 128)}
-    lm.NAMED_MODELS["cosypose-RGB-small"] = dataclasses.replace(
+    small_spec = dataclasses.replace(
         spec,
         refiner_cfg=dataclasses.replace(spec.refiner_cfg, **small),
         coarse_cfg=dataclasses.replace(spec.coarse_cfg, **small),
@@ -1006,7 +1053,7 @@ def phase_cosypose_small_cross_check(dev) -> None:
     )
     db = debug_mesh_db(MeshDataBase, io)
     g, c = (
-        _load("cosypose-RGB-small", db, d).run_inference_pipeline(*_synthetic_frame(db, d, seed=1))
+        _load(small_spec, db, d).run_inference_pipeline(*_synthetic_frame(db, d, seed=1))
         for d in (dev, torch.device("cpu"))
     )
     assert sorted(g) == sorted(c)
@@ -1016,6 +1063,433 @@ def phase_cosypose_small_cross_check(dev) -> None:
         assert dp < 1e-4
 
 
+TEXTURE_ATOL = 1e-4  # resolved rgb, card against CPU: the kernel's output is the plain version's
+#   bit for bit; the division by iz, the bilinear texture lookup and the shading are float32
+#   elementwise work that the two devices round differently in the last bits
+N_EVAL_FRAMES = 8
+
+
+def _bop_meshes():
+    """The three models of the written dataset, in metres: a UV sphere with
+    texture coordinates and a seeded 256x256 procedural texture, a box, and
+    a capsule (a cylinder with round ends) coloured by position and cut by
+    vertex clustering from ~25k faces to under 3000."""
+    from happypose_tpu_torch.meshes import io
+
+    sphere = io.make_uv_sphere(radius=0.05, n_lat=24, n_lon=32, with_uv=True)
+    sphere.texture = io.make_procedural_texture(256, seed=0)
+    dense = io.position_colored(io.make_capsule_mesh(radius=0.03, length=0.06, n_seg=128, n_cap=48))
+    capsule = io.decimate_mesh(dense, 3000)
+    assert 1000 < len(capsule.faces) <= 3000 < len(dense.faces), (len(capsule.faces), len(dense.faces))
+    return {"obj_000001": sphere, "obj_000002": io.make_box_mesh((0.04, 0.03, 0.05)),
+            "obj_000003": capsule}, len(dense.faces)
+
+
+def _model_kernel_inputs(mesh_db, label: str, B: int, dev):
+    """Packed faces of B seeded poses of one model of `mesh_db` at 240x320."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    K = torch.tensor([[600.0, 0, RES[1] / 2], [0, 600.0, RES[0] / 2], [0, 0, 1]])
+    ids = torch.full((B,), mesh_db.id_of(label), device=dev)
+    inst = mesh_db.render_assets(device=dev).select(ids)
+    fd, attrs = rf.face_inputs(inst, random_poses(B, seed=B).to(dev), K.expand(B, 3, 3).to(dev))
+    return rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, RES)
+
+
+def phase_textured(dev, root: Path, kernel: dict) -> None:
+    """A textured model from a PLY file through the kernel: uv ride in the
+    colour slots, the texture is resolved afterwards."""
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
+
+    meshes, _ = _bop_meshes()
+    sphere = meshes["obj_000001"]
+    models = root / "textured_models"
+    models.mkdir()
+    io.save_ply(models / "obj_000001.ply", sphere.scaled(1000.0))
+    assert (models / "obj_000001.png").exists()
+    obj_ds = BOPObjectDataset(models)
+    back = obj_ds.mesh_db.meshes["obj_000001"]
+    assert back.texture is not None and back.texture.shape == (256, 256, 3)
+    assert np.array_equal(back.vertex_uv, sphere.vertex_uv)
+    assert np.abs(back.texture - sphere.texture).max() <= 1 / 255  # 8-bit PNG, truncated
+    assert np.abs(back.vertices - sphere.vertices).max() < 1e-7
+
+    B = BATCHES[0]
+    A, bbox = _model_kernel_inputs(obj_ds.mesh_db, "obj_000001", B, dev)
+    name = f"textured_sphere_B{B}"
+    kernel["shapes"][name], err = _check_shape(name, A, bbox, RES)
+    assert err == 0.0, f"{name}: kernel and plain version differ by {err}"
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+
+    K = torch.tensor([[600.0, 0, RES[1] / 2], [0, 600.0, RES[0] / 2], [0, 0, 1]])
+    TCO = random_poses(B, seed=B)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        assets = obj_ds.mesh_db.render_assets(device=d)
+        assert bool(assets.has_texture.all()) and assets.textures.shape[1] == 256
+        outs.append(render_batch_fused(
+            assets, torch.zeros(B, dtype=torch.int64, device=d), TCO.to(d),
+            K.expand(B, 3, 3).to(d), resolution=RES))
+    g, c = outs
+    assert torch.equal(g.mask.cpu(), c.mask)
+    diff = (g.rgb.cpu() - c.rgb).abs().amax(-1)
+    close = (diff <= TEXTURE_ATOL).float().mean().item()
+    spread = c.rgb[c.mask].std().item()
+    log(f"textured: save_ply -> BOPObjectDataset -> render_batch_fused at {RES}, B={B}: resolved "
+        f"rgb cuda vs cpu within {TEXTURE_ATOL} on {close:.6f} of pixels, max diff "
+        f"{diff.max():.3g}; rgb std over the object {spread:.3f}")
+    assert close >= MATCH_FRACTION and spread > 0.05, "the texture did not reach the render"
+
+
+def phase_bop_dataset(dev, root: Path, kernel: dict) -> dict:
+    """Write a BOP dataset (models and one scene of frames rendered on the
+    card) and read it back."""
+    from happypose_tpu_torch.datasets.bop import (
+        BOPObjectDataset, BOPSceneDataset, SceneObservation, write_bop_models, write_bop_scene,
+    )
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
+    from happypose_tpu_torch.ops.scene_renderer import render_scenes
+
+    meshes, n_dense = _bop_meshes()
+    models, split = root / "models", root / "test"
+    t0 = time.perf_counter()
+    write_bop_models(models, MeshDataBase(meshes))
+    obj_ds = BOPObjectDataset(models)
+    t_models = time.perf_counter() - t0
+    db = obj_ds.mesh_db
+    assert db.labels == sorted(meshes)
+    for label, mesh in meshes.items():
+        ply = models / f"{label}.ply"
+        on_disk = io.load_ply(ply)
+        assert np.array_equal(on_disk.vertices, (mesh.vertices * 1000.0).astype(np.float32)), label
+        assert np.array_equal(on_disk.faces, mesh.faces), label
+        assert np.abs(db.meshes[label].vertices - mesh.vertices).max() < 1e-7, label
+        if mesh.vertex_uv is None:  # both parsers read the files without uv
+            slow = io.load_ply(ply, native=False)
+            assert np.array_equal(slow.vertices, on_disk.vertices), label
+            assert np.array_equal(slow.faces, on_disk.faces), label
+            assert np.array_equal(slow.vertex_colors, on_disk.vertex_colors), label
+    from happypose_tpu_torch.csrc.fastply import get_fastply
+    assert get_fastply() is not None, "fastply.cpp was not built"
+
+    B = BATCHES[0]
+    name = f"decimated_capsule_B{B}"
+    A, bbox = _model_kernel_inputs(db, "obj_000003", B, dev)
+    kernel["shapes"][name], err = _check_shape(name, A, bbox, RES)
+    assert err == 0.0, f"{name}: kernel and plain version differ by {err}"
+
+    # frames: 2 or 3 of the 3 models each, side by side, seeded poses
+    H, W = FRAME_RES
+    f = 600.0 * W / 640
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    rs = np.random.RandomState(0)
+    obj_ids, scene_ids, TCO = [], [], []
+    for fi in range(N_EVAL_FRAMES):
+        chosen = sorted(rs.permutation(3)[: 2 + fi % 2].tolist())
+        T = random_poses(len(chosen), seed=100 + fi, z=(0.5, 0.65))
+        T[:, 0, 3] = torch.tensor([(-0.13, 0.0, 0.13)[o] for o in chosen]) + T[:, 0, 3] * 0.3
+        obj_ids += chosen
+        scene_ids += [fi] * len(chosen)
+        TCO.append(T)
+    obj_ids = torch.tensor(obj_ids, device=dev)
+    scene_ids = torch.tensor(scene_ids, device=dev)
+    TCO = torch.cat(TCO).to(dev)
+    N = len(obj_ids)
+    assets = db.render_assets(device=dev)
+    Kn = K.expand(N, 3, 3).to(dev)
+    inst = render_batch_fused(assets, obj_ids, TCO, Kn, resolution=FRAME_RES)
+    rf.launches = 0
+    scenes, t_render = _timed(lambda: render_scenes(
+        assets, obj_ids, scene_ids, TCO, Kn, torch.ones(N, dtype=torch.bool, device=dev),
+        n_scenes=N_EVAL_FRAMES, resolution=FRAME_RES))
+    assert rf.launches == 1, f"render_scenes made {rf.launches} launches"
+    # an instance is visible where its own depth is the scene's
+    visible = inst.mask & (inst.depth == scenes.depth[scene_ids])
+    visib = visible.flatten(1).sum(1).float() / inst.mask.flatten(1).sum(1).clamp(min=1).float()
+    g = torch.Generator().manual_seed(0)
+    noise = (torch.rand(N_EVAL_FRAMES, H, W, 3, generator=g) * 0.3).to(dev)
+    rgb8 = (torch.where(scenes.mask[..., None], scenes.rgb, noise) * 255).to(torch.uint8).cpu().numpy()
+    depth = scenes.depth.cpu().numpy()
+    frames = []
+    for fi in range(N_EVAL_FRAMES):
+        rows = (scene_ids == fi).nonzero()[:, 0].tolist()
+        boxes = []
+        for r in rows:
+            ys, xs = torch.nonzero(visible[r], as_tuple=True)
+            boxes.append([xs.min().item(), ys.min().item(), xs.max().item(), ys.max().item()])
+        frames.append(SceneObservation(
+            rgb=rgb8[fi], K=K.numpy(), depth=depth[fi],
+            obj_labels=[db.labels[int(obj_ids[r])] for r in rows],
+            TWO=TCO[rows].cpu().numpy(), bboxes=np.asarray(boxes, np.float32),
+            visib_fract=visib[rows].cpu().numpy(), scene_id=1, view_id=fi,
+        ))
+    _, t_write = _timed(lambda: write_bop_scene(split, 1, frames))
+
+    ds = BOPSceneDataset(split, load_depth=True)
+    assert len(ds) == N_EVAL_FRAMES
+    t0 = time.perf_counter()
+    back = [ds[i] for i in range(len(ds))]
+    t_read = time.perf_counter() - t0
+    for f, b in zip(frames, back):
+        assert np.array_equal(b.rgb, f.rgb) and b.obj_labels == f.obj_labels
+        assert np.abs(b.depth - f.depth).max() <= 1e-3 + 1e-6  # uint16 mm, truncated
+        assert np.abs(b.TWO - f.TWO).max() < 1e-6 and np.abs(b.bboxes - f.bboxes).max() < 1e-3
+        assert np.abs(b.visib_fract - f.visib_fract).max() < 1e-6 and np.allclose(b.K, f.K)
+    assert float(visib.min()) > 0.5, f"an instance is hidden: visib_fract {visib.tolist()}"
+    # the files above carry no row filter; most encoders write Paeth and
+    # Average rows, which the codec undoes one anti-diagonal at a time
+    from happypose_tpu_torch.utils.png import decode_png, encode_png
+
+    d16 = np.clip(frames[0].depth * 1000.0, 0, 65535).astype(np.uint16)
+    filtered = [encode_png(frames[0].rgb, row_filter=4), encode_png(d16, row_filter=4)]
+    t0 = time.perf_counter()
+    decoded = [decode_png(b) for b in filtered]
+    t_paeth = time.perf_counter() - t0
+    assert np.array_equal(decoded[0], frames[0].rgb) and np.array_equal(decoded[1], d16)
+    log(f"bop dataset: 3 models (textured sphere {len(meshes['obj_000001'].faces)} faces, box, "
+        f"capsule {n_dense} -> {len(meshes['obj_000003'].faces)} faces) written and read in "
+        f"{t_models:.3f} s, both PLY parsers agree; {N_EVAL_FRAMES} frames {FRAME_RES} with {N} "
+        f"instances: render_scenes {t_render:.4f} s (1 launch), written in {t_write:.3f} s, "
+        f"read back (rgb + depth PNG) in {t_read:.3f} s = {N_EVAL_FRAMES / t_read:.1f} frames/s "
+        f"(one frame's two PNGs with Paeth rows decode in {t_paeth:.3f} s = "
+        f"{1 / t_paeth:.1f} frames/s); "
+        f"visib_fract {visib.min():.3f}-{visib.max():.3f}; rgb equal, depth within 1 mm, poses "
+        f"within 1e-6 m")
+    return {"models": models, "split": split, "n_instances": N,
+            "n_per_frame": [len(f.obj_labels) for f in frames], "render_scenes": 1}
+
+
+class _GroundTruthEstimator:
+    """Stands in for a `PoseEstimator`: answers every frame with its
+    ground-truth poses (the runner asks frame by frame, in order)."""
+
+    def __init__(self, scene_ds, mesh_db, dev):
+        self.scene_ds, self.mesh_db, self.dev, self.next = scene_ds, mesh_db, dev, 0
+
+    def run_inference_pipeline(self, obs_batch, det):
+        from happypose_tpu_torch.inference.types import PoseEstimateBatch
+
+        obs = self.scene_ds[self.next]
+        self.next += 1
+        ids = torch.as_tensor(self.mesh_db.ids_of(obs.obj_labels), device=self.dev)
+        assert torch.equal(ids, det.obj_ids)
+        n = len(ids)
+        zeros = torch.zeros(n, dtype=torch.int64, device=self.dev)
+        return {"final": PoseEstimateBatch(
+            poses=torch.as_tensor(obs.TWO, device=self.dev), K=obs_batch.K.expand(n, 3, 3),
+            obj_ids=ids, batch_im_ids=zeros, instance_ids=zeros, hypothesis_ids=zeros,
+            scores=det.scores, coarse_logits=det.scores, pose_logits=det.scores,
+            valid=torch.ones(n, dtype=torch.bool, device=self.dev),
+        )}
+
+
+def phase_run_eval(dev, root: Path, data: dict, s_per_image: float) -> int:
+    """`scripts.run_eval` at full width on the written dataset."""
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
+    from happypose_tpu_torch.evaluation.bop19 import Bop19Evaluator
+    from happypose_tpu_torch.evaluation.bop_export import load_bop_csv
+    from happypose_tpu_torch.evaluation.meters import PoseErrorMeter
+    from happypose_tpu_torch.evaluation.prediction_runner import PredictionRunner, run_eval
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_eval as run_eval_cli
+    from happypose_tpu_torch.utils import load_model as lm
+
+    registry = dict(lm.NAMED_MODELS)
+    out_dir = root / "eval_megapose"
+    rf.launches = 0
+    res, t_all = _timed(lambda: run_eval_cli.run([
+        "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+        "--model", "megapose-RGB", "--detections", "gt", "--bop19", "--out-dir", str(out_dir)]))
+    launches = rf.launches
+    assert lm.NAMED_MODELS == registry, "run_eval changed the registry of named models"
+    preds, summary = res["predictions"], res["summary"]
+    n_frames = len(preds)
+    assert n_frames == N_EVAL_FRAMES
+    cfg = registry["megapose-RGB"].inference_cfg
+    per_frame = [_frame_launches(cfg, D, cfg.SO3_grid_size) for D in data["n_per_frame"]]
+    expected = sum(per_frame) + 2 * n_frames
+    log(f"run_eval megapose-RGB gt --bop19: {n_frames} frames, {data['n_instances']} instances; "
+        f"raster_fused launches {launches}, expected {expected} "
+        f"({per_frame} a frame + 2 a "
+        f"scored image)")
+    assert launches == expected, f"kernel launches {launches} != {expected}"
+    for rec, D in zip(preds, data["n_per_frame"]):
+        assert rec["poses"].shape == (D, 4, 4) and np.isfinite(rec["poses"]).all()
+    on_disk = json.loads((out_dir / "summary_rank0.json").read_text())
+    assert on_disk["n_gt"] == data["n_instances"] and "bop19_AR" in on_disk
+    csv = load_bop_csv(out_dir / "preds_rank0.csv")
+    poses = np.concatenate([r["poses"] for r in preds])
+    assert csv["poses"].shape == poses.shape
+    d_csv = np.abs(csv["poses"] - poses).max()
+    assert d_csv < 1e-6, f"the csv's poses differ from the runner's by {d_csv}"
+    times = summary["frame_seconds"]
+    assert times == on_disk["frame_seconds"]
+    warm = {D: [t for t, d in zip(times[1:], data["n_per_frame"][1:]) if d == D] for D in (2, 3)}
+    log(f"run_eval: get_predictions {summary['eval_seconds_predictions']:.3f} s for {n_frames} "
+        f"frames (first frame {times[0]:.3f} s; warm s/frame D=2 {_fmt(warm[2])}, D=3 "
+        f"{_fmt(warm[3])}; phase 4 read {s_per_image:.4f} s/image at D=2); metrics "
+        f"{summary['eval_seconds_metrics']:.3f} s ({summary['eval_seconds_metrics'] / n_frames:.4f} "
+        f"s a scored image); the whole call with loading {t_all:.2f} s; summary "
+        f"{ {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }; csv poses "
+        f"within {d_csv:.2g}")
+    # a time near 0 would mean the clock was read before the card finished
+    for t in warm[2]:
+        assert 0.5 * s_per_image < t < 2.0 * s_per_image, f"frame time {t} vs {s_per_image} s/image"
+    for t in warm[3]:
+        assert 0.5 * s_per_image < t < 3.0 * s_per_image, f"frame time {t} vs {s_per_image} s/image"
+
+    # ground-truth poses through the same runner and metrics: AR = 1
+    obj_ds = BOPObjectDataset(data["models"])
+    scene_ds = BOPSceneDataset(data["split"], load_depth=True)
+    runner = PredictionRunner(
+        scene_ds=scene_ds, estimator=_GroundTruthEstimator(scene_ds, obj_ds.mesh_db, dev),
+        mesh_db=obj_ds.mesh_db, detection_type="gt", device=str(dev))
+    meshes = obj_ds.mesh_db.batched(n_points=512, device=dev)
+    rf.launches = 0
+    gt_summary = run_eval(
+        runner, PoseErrorMeter(meshes=meshes, is_symmetric=obj_ds.is_symmetric),
+        bop19_evaluator=Bop19Evaluator(meshes=meshes, assets=obj_ds.mesh_db.render_assets(device=dev)))
+    assert rf.launches == 2 * n_frames
+    log(f"run_eval on the ground-truth poses: {gt_summary}")
+    assert gt_summary["bop19_AR"] == 1.0 and gt_summary["n_matched"] == data["n_instances"]
+    return launches
+
+
+def _seeded_state_dict(cfg, seed: int, head_noise=3e-3):
+    """Seeded weights of a `PosePredictor` with a perturbed pose head."""
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor
+
+    model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(seed))
+    if cfg.predict_pose_update:
+        g = torch.Generator().manual_seed(seed + 100)
+        with torch.no_grad():
+            model.pose_fc.weight += torch.randn(model.pose_fc.weight.shape, generator=g) * head_noise
+    return model.state_dict()
+
+
+def phase_detector_eval(dev, root: Path, data: dict) -> int:
+    """`run_eval` with the detector in front of cosypose-RGB, both read from
+    run directories, and `run_detection_eval` on the same split."""
+    from happypose_tpu_torch.evaluation.coco_export import load_coco_json
+    from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_detection_eval, run_eval as run_eval_cli
+    from happypose_tpu_torch.utils import load_model as lm
+
+    spec = lm.NAMED_MODELS["cosypose-RGB"]
+    ckpt = root / "cosypose_runs"
+    for role, cfg, seed in (("refiner", spec.refiner_cfg, 0), ("coarse", spec.coarse_cfg, 1)):
+        lm.save_run_dir(ckpt / role, _seeded_state_dict(cfg, seed),
+                        {"backbone": cfg.backbone, "render_size": list(cfg.render_size)})
+    det_cfg = DetectorConfig(n_classes=3)
+    det_model = FCOSDetector(det_cfg).init_weights(torch.Generator().manual_seed(0))
+    det_run = lm.save_run_dir(root / "detector_run", det_model.state_dict(),
+                              {"fpn_channels": det_cfg.fpn_channels, "image_size": [240, 320]})
+
+    out_dir = root / "eval_cosypose"
+    rf.launches = 0
+    res, t_all = _timed(lambda: run_eval_cli.run([
+        "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+        "--model", "cosypose-RGB", "--checkpoints", str(ckpt), "--detections", "detector",
+        "--detector-run", str(det_run), "--detection-th", "0.0", "--out-dir", str(out_dir)]))
+    launches = rf.launches
+    preds, summary = res["predictions"], res["summary"]
+    n_det = [len(r["poses"]) for r in preds]
+    expected = sum(_frame_launches(spec.inference_cfg, D) for D in n_det)
+    times = summary["frame_seconds"]
+    log(f"run_eval cosypose-RGB, detector in front (threshold 0), run directories: "
+        f"{len(preds)} frames, detections a frame {n_det}; raster_fused launches {launches}, "
+        f"expected {expected}; first frame {times[0]:.3f} s, warm s/frame {_fmt(times[1:])}; "
+        f"the whole call with loading {t_all:.2f} s; n_matched {summary['n_matched']} of "
+        f"{summary['n_gt']}")
+    assert len(preds) == N_EVAL_FRAMES and min(n_det) >= 1 and max(n_det) <= 8
+    assert launches == expected, f"kernel launches {launches} != {expected}"
+    assert all(np.isfinite(r["poses"]).all() for r in preds)
+    assert (out_dir / "preds_rank0.csv").exists() and summary["n_gt"] == data["n_instances"]
+
+    det_out = root / "eval_detector"
+    _, t_det = _timed(lambda: run_detection_eval.main([
+        "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+        "--detector-run", str(det_run), "--detection-th", "0.0", "--out-dir", str(det_out)]))
+    det_summary = json.loads((det_out / "summary_rank0.json").read_text())
+    coco = load_coco_json(det_out / "detections_rank0.json")
+    log(f"run_detection_eval: {t_det:.2f} s, {len(coco)} detections in the COCO json, summary "
+        f"{det_summary}")
+    assert det_summary["n_gt"] == data["n_instances"] and len(coco) >= N_EVAL_FRAMES
+    assert all(len(r["bbox"]) == 4 and r["category_id"] in (1, 2, 3) for r in coco)
+    return launches
+
+
+def phase_run_eval_cross_check(dev, root: Path, data: dict) -> None:
+    """`run_eval` cut to 64x128 renders, a 72-rotation grid, top-2, 2
+    iterations and 2 frames, on the card and on the CPU, from one pair of
+    run directories: poses in the csv to 1e-4 m / 1e-4 in rotation entries
+    for every row whose final score agrees to 1e-3 (the same hypothesis
+    won on both devices)."""
+    from happypose_tpu_torch.evaluation.bop_export import load_bop_csv
+    from happypose_tpu_torch.scripts import run_eval as run_eval_cli
+    from happypose_tpu_torch.utils import load_model as lm
+
+    spec = lm.NAMED_MODELS["megapose-RGB"]
+    ckpt = root / "small_runs"
+    for role, cfg, seed in (("refiner", spec.refiner_cfg, 0), ("coarse", spec.coarse_cfg, 1)):
+        lm.save_run_dir(ckpt / role,
+                        _seeded_state_dict(dataclasses.replace(cfg, render_size=(64, 128)), seed),
+                        {"backbone": cfg.backbone, "render_size": [64, 128]})
+    csvs = []
+    for d in (str(dev), "cpu"):
+        out_dir = root / f"eval_small_{d.replace(':', '_')}"
+        run_eval_cli.main([
+            "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+            "--model", "from-checkpoints", "--checkpoints", str(ckpt), "--so3-grid", "72",
+            "--n-pose-hypotheses", "2", "--n-refiner-iterations", "2", "--max-frames", "2",
+            "--out-dir", str(out_dir), "--device", d])
+        csvs.append(load_bop_csv(out_dir / "preds_rank0.csv"))
+    g, c = csvs
+    assert g["poses"].shape == c["poses"].shape and np.array_equal(g["obj_ids"], c["obj_ids"])
+    same = np.abs(g["scores"] - c["scores"]) < 1e-3
+    dt = np.abs(g["poses"] - c["poses"])[:, :3, 3].max(1)
+    dR = np.abs(g["poses"] - c["poses"])[:, :3, :3].reshape(-1, 9).max(1)
+    log(f"cut run_eval cuda vs cpu: {len(same)} rows, scores agree on {int(same.sum())}; pose "
+        f"diff t {np.round(dt, 7).tolist()} m, R {np.round(dR, 7).tolist()}")
+    assert same.sum() * 2 >= len(same), "most rows ended on different hypotheses"
+    assert dt[same].max() < 1e-4 and dR[same].max() < 1e-4
+
+
+def phase_example(dev, root: Path) -> int:
+    """The quick start's first command, on the card."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_inference_on_example
+    from happypose_tpu_torch.utils.png import read_png
+
+    example = root / "example"
+    rf.launches = 0
+    rc, t = _timed(lambda: run_inference_on_example.main(
+        ["--example-dir", str(example), "--make-example"]))
+    launches = rf.launches
+    out = example / "outputs"
+    records = json.loads((out / "object_data.json").read_text())
+    overlay = read_png(out / "all_results.png")
+    log(f"run_inference_on_example --make-example: {t:.2f} s, {launches} launches, "
+        f"{len(records)} pose(s), overlay {overlay.shape} {overlay.dtype}, scene.glb "
+        f"{(out / 'scene.glb').stat().st_size} bytes")
+    assert rc == 0 and len(records) == 1 and np.isfinite(np.asarray(records[0]["TWO"])).all()
+    assert overlay.shape == (240, 320, 3) and overlay.dtype == np.uint8
+    assert (out / "scene.glb").read_bytes()[:4] == b"glTF"
+    # the example's render, a megapose frame at grid 72 with D = 1, the overlay's render
+    from happypose_tpu_torch.utils.load_model import NAMED_MODELS
+
+    cfg = NAMED_MODELS["megapose-RGB"].inference_cfg
+    expected = 1 + _frame_launches(dataclasses.replace(cfg, bsz_images=72), 1, 72) + 1
+    assert launches == expected, f"kernel launches {launches} != {expected}"
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -1023,7 +1497,8 @@ def main() -> None:
     torch.cuda.set_device(dev)
     phase_build()
     kernel = phase_kernel(dev)
-    launches = {"megapose-RGB": phase_pipeline(dev)}
+    n_launches, s_per_image = phase_pipeline(dev)
+    launches = {"megapose-RGB": n_launches}
     phase_small_cross_check(dev)
     phase_detector(dev)
     launches["cosypose-RGB"] = phase_cosypose(dev)
@@ -1034,6 +1509,16 @@ def main() -> None:
     poses = phase_depth_refiners(dev)
     launches["bop19 add_image (one image, VSD)"] = phase_bop19(dev, poses)
     phase_rgbd_small_cross_check(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        phase_textured(dev, root, kernel)
+        data = phase_bop_dataset(dev, root, kernel)
+        launches["render_scenes (8 frames)"] = data["render_scenes"]
+        launches["run_eval megapose-RGB gt --bop19 (8 frames)"] = phase_run_eval(
+            dev, root, data, s_per_image)
+        launches["run_eval detector->cosypose-RGB (8 frames)"] = phase_detector_eval(dev, root, data)
+        phase_run_eval_cross_check(dev, root, data)
+        launches["run_inference_on_example"] = phase_example(dev, root)
     print(json.dumps({"kernels": [{
         "name": "raster_fused",
         "route": "cuda",

@@ -5,16 +5,26 @@ The module layout mirrors the JAX package: the counterpart of
 function is held against its JAX reference by `tests/test_torch_*.py`.
 
 - ``lib3d``:     SE(3)/rotation/camera/crop math on tensors.
-- ``meshes``:    procedural meshes + the padded mesh database.
+- ``meshes``:    mesh file IO (PLY, OBJ), procedural meshes and textures,
+                 the padded mesh database.
 - ``ops``:       the rasterizer (hand-written CUDA kernel + plain PyTorch
-                 version), crop-resize matmuls, segment ops.
-- ``csrc``:      CUDA sources and their nvcc build.
+                 version), the scene renderer, crop-resize matmuls, segment
+                 ops.
+- ``csrc``:      CUDA sources and their nvcc build; the native PLY decoder
+                 and its g++ build.
 - ``models``:    ResNet34, WideResNet18/34, the render-and-compare pose
                  predictor and the FCOS + YOLACT-mask detector.
-- ``datasets``:  the detector's input crop (`crop_resize_to_aspect`).
-- ``inference``: the MegaPose and CosyPose single-view pipelines and the
-                 detector wrapper.
-- ``utils``:     named models and the Flax -> PyTorch weight bridge.
+- ``datasets``:  BOP object and scene datasets with their writers, other
+                 object-dataset layouts, samplers, the name registry, the
+                 detector's input crop (`crop_resize_to_aspect`).
+- ``inference``: the MegaPose and CosyPose single-view pipelines, the depth
+                 refiners and the detector wrapper.
+- ``evaluation``: pose-error and BOP19 meters, the prediction runner,
+                 BOP csv / COCO json exports, the detection meter.
+- ``visualization``: overlays and glTF scene export.
+- ``scripts``:   the example, evaluation and kernel-bench CLIs.
+- ``utils``:     named models, run directories, the Flax -> PyTorch weight
+                 bridge, the PNG codec, timers, logging, config overrides.
 
 This package imports neither `jax` nor `happypose_tpu`.
 """

@@ -70,6 +70,20 @@ class DetectionBatch:
         return self.boxes.shape[0]
 
     @staticmethod
+    def pad(det: "DetectionBatch", n: int) -> "DetectionBatch":
+        """At most `n` rows: with more, the `n` best scored are kept (a
+        stable descending sort: among equal scores the earlier row wins,
+        as `np.argsort(-scores)` does in the JAX package). Fewer rows come
+        back as they are: the JAX package pads them up to `n` so that XLA
+        compiles one program, which PyTorch has no use for."""
+        if det.n_rows <= n:
+            return det
+        order = torch.sort(det.scores, descending=True, stable=True).indices[:n]
+        return DetectionBatch(
+            **{f.name: getattr(det, f.name)[order] for f in dataclasses.fields(det)}
+        )
+
+    @staticmethod
     def from_numpy(
         boxes: np.ndarray,
         obj_ids: np.ndarray,

@@ -17,21 +17,55 @@ import torch
 from happypose_tpu_torch.meshes.io import Mesh
 
 
+_RESIZE_BITS = 22  # fixed-point bits of an 8-bit resampling coefficient
+
+
+def _triangle_coeffs(in_size: int, out_size: int):
+    """Taps of a triangle (bilinear) filter for resampling `in_size` samples
+    to `out_size`: first input index [out], integer weights [out, taps]
+    scaled by 2**22. The support widens by the scale when shrinking;
+    sample centres sit at half pixels; each row of weights is normalized
+    before it is rounded."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    taps = int(np.ceil(support)) * 2 + 1
+    centre = (np.arange(out_size) + 0.5) * scale
+    lo = np.maximum(np.trunc(centre - support + 0.5).astype(np.int64), 0)
+    hi = np.minimum(np.trunc(centre + support + 0.5).astype(np.int64), in_size)
+    x = lo[:, None] + np.arange(taps)[None, :]
+    w = 1.0 - np.abs((x - centre[:, None] + 0.5) / filterscale)
+    w = np.where((x < hi[:, None]) & (w > 0.0), w, 0.0)
+    total = w.sum(1, keepdims=True)
+    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
+    return lo, np.trunc(w * (1 << _RESIZE_BITS) + 0.5).astype(np.int64)
+
+
+def _resample_axis0(img: np.ndarray, out_size: int) -> np.ndarray:
+    """Resample a uint8 array along its first axis, rounding to 8 bits."""
+    lo, w = _triangle_coeffs(img.shape[0], out_size)
+    idx = np.minimum(lo[:, None] + np.arange(w.shape[1])[None, :], img.shape[0] - 1)
+    acc = np.full((out_size,) + img.shape[1:], 1 << (_RESIZE_BITS - 1), np.int64)
+    wide = img.astype(np.int64)
+    for t in range(w.shape[1]):
+        acc += wide[idx[:, t]] * w[:, t].reshape((-1,) + (1,) * (img.ndim - 1))
+    return np.clip(acc >> _RESIZE_BITS, 0, 255).astype(np.uint8)
+
+
 def _resize_texture(tex: np.ndarray, size: int) -> np.ndarray:
-    """Resample a [TH, TW, 3] float texture to [size, size, 3]: bilinear
-    through PIL when it is installed, nearest-neighbour otherwise."""
+    """Resample a [TH, TW, 3] float texture to [size, size, 3] with a
+    triangle filter on 8-bit values: columns first, then rows, each pass
+    rounded to 8 bits (what an 8-bit bilinear image resize computes, and
+    what the JAX package gets from its round trip through `uint8`)."""
     th, tw = tex.shape[:2]
     if (th, tw) == (size, size):
         return tex.astype(np.float32)
-    try:
-        from PIL import Image
-    except ImportError:
-        yi = np.linspace(0, th - 1, size).astype(np.int64)
-        xi = np.linspace(0, tw - 1, size).astype(np.int64)
-        return tex[yi][:, xi].astype(np.float32)
-    img = Image.fromarray(np.clip(tex * 255.0, 0, 255).astype(np.uint8))
-    img = img.resize((size, size), Image.BILINEAR)
-    return np.asarray(img, np.float32) / 255.0
+    img = np.clip(tex * 255.0, 0, 255).astype(np.uint8)
+    if tw != size:
+        img = _resample_axis0(img.transpose(1, 0, 2), size).transpose(1, 0, 2)
+    if th != size:
+        img = _resample_axis0(img, size)
+    return img.astype(np.float32) / 255.0
 
 
 def _to(obj, device):

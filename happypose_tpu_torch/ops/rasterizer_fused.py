@@ -441,6 +441,7 @@ def render_batch_fused(
     resolution: Tuple[int, int] = (240, 320),
     light_ambient: float = 0.6,
     light_diffuse: float = 0.6,
+    lights: Optional[torch.Tensor] = None,  # [B, 5], see `shade_lambert`
 ) -> RenderOutput:
     """Render B object instances, one per image (counterpart of
     `render_batch_pallas`)."""
@@ -455,7 +456,7 @@ def render_batch_fused(
     n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-8)
     n = torch.where(n[..., 2:3] > 0, -n, n)
     albedo = resolve_albedo(rgb, assets.textures, obj_ids, inst.has_texture)
-    rgb = shade_lambert(albedo, n, light_ambient, light_diffuse)
+    rgb = shade_lambert(albedo, n, light_ambient, light_diffuse, lights)
     hit_f = hit[..., None]
     return RenderOutput(
         rgb=torch.where(hit_f, rgb, torch.zeros_like(rgb)),

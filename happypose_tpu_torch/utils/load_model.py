@@ -1,7 +1,11 @@
 """Named-model registry + one-call loading (PyTorch port of
-`happypose_tpu/utils/load_model.py`). Weights are seeded or given as state
-dicts (e.g. carried over from Flax by `utils.weights_from_jax`); reading
-the JAX package's checkpoint files needs Flax and is not ported.
+`happypose_tpu/utils/load_model.py`). Weights are seeded, given as state
+dicts (e.g. carried over from Flax by `utils.weights_from_jax`), or read
+from a run directory of the port: `config.json` (the JAX package's keys:
+`backbone`, `render_size`, `bf16` for a pose model; `fpn_channels`,
+`image_size` for a detector) beside `state_dict.pt` (`torch.save` of a
+state dict, read with `weights_only=True`; `save_run_dir` writes both).
+Reading the JAX package's msgpack checkpoints needs Flax and is not ported.
 
 Every render goes where its tensors live: a model loaded on a CUDA device
 renders with the hand-written CUDA rasterizer, a model on the CPU with its
@@ -14,8 +18,10 @@ caller asks for `device="cpu"`, as the tests do.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from pathlib import Path
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -79,24 +85,90 @@ NAMED_MODELS: Dict[str, NamedModelSpec] = {
 }
 
 
+STATE_DICT_FILE = "state_dict.pt"
+
+
+def save_run_dir(
+    run_dir: Union[str, Path],
+    state_dict: Mapping[str, torch.Tensor],
+    config: Mapping[str, object],
+) -> Path:
+    """Write a run directory of the port: `config.json` + `state_dict.pt`."""
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.json").write_text(json.dumps(dict(config)))
+    torch.save(
+        {k: v.detach().cpu() for k, v in state_dict.items()},
+        run_dir / STATE_DICT_FILE,
+    )
+    return run_dir
+
+
+def _read_state_dict(run_dir: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    path = Path(run_dir) / STATE_DICT_FILE
+    if not path.exists():
+        raise FileNotFoundError(
+            f"no {STATE_DICT_FILE} in {run_dir}: a run directory of the port "
+            "is config.json beside state_dict.pt"
+        )
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def spec_from_checkpoints(
+    checkpoint_dirs: Mapping[str, Union[str, Path]],
+    inference_cfg: Optional[InferenceConfig] = None,
+) -> NamedModelSpec:
+    """Build a spec from run directories' own saved configs, so any run can
+    be evaluated without a matching named spec."""
+
+    def cfg_from(run_dir, coarse: bool) -> PosePredictorConfig:
+        c = json.loads((Path(run_dir) / "config.json").read_text())
+        if c.get("bf16"):
+            raise NotImplementedError(
+                f"{run_dir}: the run was trained in bfloat16; the port "
+                "computes in float32 only"
+            )
+        return PosePredictorConfig(
+            backbone=c.get("backbone", "wide_resnet18"),
+            render_size=tuple(c.get("render_size", (120, 160))),
+            predict_pose_update=not coarse,
+            predict_rendered_views_logits=coarse,
+        )
+
+    return NamedModelSpec(
+        refiner_cfg=cfg_from(checkpoint_dirs["refiner"], coarse=False),
+        coarse_cfg=(
+            cfg_from(checkpoint_dirs["coarse"], coarse=True)
+            if "coarse" in checkpoint_dirs else None
+        ),
+        inference_cfg=inference_cfg or InferenceConfig(),
+    )
+
+
 def load_named_model(
-    name: str,
+    name: Union[str, NamedModelSpec],
     mesh_db: MeshDataBase,
     n_points: int = 1000,
     seed: int = 0,
     device="cuda",
     state_dicts: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+    checkpoint_dirs: Optional[Mapping[str, Union[str, Path]]] = None,
 ) -> PoseEstimator:
-    """Build a PoseEstimator for `name` on `device`.
+    """Build a PoseEstimator for `name` (a key of `NAMED_MODELS`, or a spec
+    of the caller's own: overrides are handed on, never written into the
+    registry) on `device`.
 
     Weights are fresh and seeded (refiner from `seed`, coarse model, when
     the spec has one, from `seed + 1`, drawn from a `torch.Generator`)
-    unless `state_dicts`
-    {"refiner": ..., "coarse": ...} gives them, e.g. from
-    `utils.weights_from_jax.pose_predictor_state_dict`.
+    unless `state_dicts` {"refiner": ..., "coarse": ...} gives them, e.g.
+    from `utils.weights_from_jax.pose_predictor_state_dict`, or
+    `checkpoint_dirs` {"refiner": dir, "coarse": dir} names run directories
+    to read them from.
     """
-    spec = NAMED_MODELS[name]
-    state_dicts = state_dicts or {}
+    spec = name if isinstance(name, NamedModelSpec) else NAMED_MODELS[name]
+    state_dicts = dict(state_dicts or {})
+    for role, run_dir in (checkpoint_dirs or {}).items():
+        state_dicts.setdefault(role, _read_state_dict(run_dir))
 
     def build(cfg: PosePredictorConfig, role: str, model_seed: int) -> PosePredictor:
         model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(model_seed))
@@ -116,7 +188,8 @@ def load_named_model(
 
 
 def load_detector(
-    cfg: DetectorConfig,
+    cfg: Union[DetectorConfig, str, Path],
+    n_classes: Optional[int] = None,
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     seed: int = 0,
     device="cuda",
@@ -124,9 +197,26 @@ def load_detector(
 ) -> Detector:
     """Build a `Detector` on `device` that runs at `image_size` (H, W).
 
-    Weights are fresh and seeded from `seed` unless `state_dict` gives
-    them, e.g. from `utils.weights_from_jax.detector_state_dict`. Its class
+    `cfg` is a `DetectorConfig`, or a run directory with `n_classes` (as the
+    JAX package's `load_detector(run_dir, n_classes)`): its `config.json`
+    gives `fpn_channels` (default 64) and `image_size`, its `state_dict.pt`
+    the weights. Otherwise weights are fresh and seeded from `seed` unless
+    `state_dict` gives them, e.g. from
+    `utils.weights_from_jax.detector_state_dict`. The detector's class
     indices must be the mesh database's object ids."""
+    if not isinstance(cfg, DetectorConfig):
+        run_dir = Path(cfg)
+        if n_classes is None:
+            raise ValueError("a detector run directory needs n_classes")
+        fpn_channels = 64
+        cfg_file = run_dir / "config.json"
+        if cfg_file.exists():
+            c = json.loads(cfg_file.read_text())
+            fpn_channels = int(c.get("fpn_channels", fpn_channels))
+            if c.get("image_size"):
+                image_size = tuple(int(v) for v in c["image_size"])
+        cfg = DetectorConfig(n_classes=n_classes, fpn_channels=fpn_channels)
+        state_dict = _read_state_dict(run_dir)
     model = FCOSDetector(cfg).init_weights(torch.Generator().manual_seed(seed))
     if state_dict is not None:
         model.load_state_dict(state_dict)

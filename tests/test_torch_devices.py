@@ -48,7 +48,7 @@ def test_port_never_falls_back_to_the_cpu():
 FOLLOWERS = [
     "inference/icp_refiner.py", "inference/teaser_refiner.py", "evaluation/meters.py",
     "evaluation/bop19.py", "ops/roi_align.py", "ops/rasterizer.py", "ops/segment_ops.py",
-    "lib3d/distances.py", "lib3d/rotations.py",
+    "lib3d/distances.py", "lib3d/rotations.py", "ops/scene_renderer.py",
 ]
 CREATORS = {"arange", "eye", "full", "zeros", "ones", "rand", "randn", "tensor", "as_tensor",
             "empty", "linspace", "Generator"}
@@ -133,3 +133,56 @@ def test_bench_variant_applies_to_the_kernel_source(step):
 
     source = (Path(happypose_tpu_torch.__file__).parent / "csrc" / "raster_fused.cu").read_text()
     assert bench_raster.variant_source(step) != source
+
+
+def test_runner_and_timer_default_to_the_card():
+    from happypose_tpu_torch.evaluation.prediction_runner import PredictionRunner
+    from happypose_tpu_torch.utils.timer import DeviceTimer
+
+    assert PredictionRunner.__dataclass_fields__["device"].default == "cuda"
+    assert inspect.signature(DeviceTimer.__init__).parameters["device"].default == "cuda"
+
+
+CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example"]
+
+
+@pytest.mark.parametrize("script", CLIS)
+def test_cli_device_defaults_to_the_card(script):
+    """Every CLI has `--device` with the default `cuda`."""
+    source = (Path(happypose_tpu_torch.__file__).parent / "scripts" / f"{script}.py").read_text()
+    assert re.search(r'add_argument\(\s*"--device",\s*default="cuda"', source), script
+
+
+@pytest.mark.parametrize("script", ["run_eval", "run_detection_eval", "run_inference_on_example"])
+def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
+    """Without `--device cpu` a CLI asks PyTorch for the card: where there
+    is none it fails with PyTorch's own error; it does not fall back. (Where
+    a card is present the call runs on it instead.)"""
+    import importlib
+
+    from happypose_tpu_torch.datasets.bop import SceneObservation, write_bop_models, write_bop_scene
+    from happypose_tpu_torch.meshes.io import make_box_mesh
+    from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+    from happypose_tpu_torch.utils.load_model import save_run_dir
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    import numpy as np
+
+    write_bop_models(tmp_path / "models", MeshDataBase({"obj_000001": make_box_mesh()}))
+    write_bop_scene(tmp_path / "test", 0, [SceneObservation(
+        rgb=np.zeros((24, 32, 3), np.uint8), K=np.eye(3, dtype=np.float32), obj_labels=["obj_000001"],
+        TWO=np.eye(4, dtype=np.float32)[None], bboxes=np.asarray([[2.0, 2, 20, 20]], np.float32),
+        visib_fract=np.ones(1, np.float32))])
+    cfg = DetectorConfig(n_classes=1, fpn_channels=8)
+    save_run_dir(tmp_path / "det", FCOSDetector(cfg).state_dict(), {"fpn_channels": 8})
+    common = ["--split-dir", str(tmp_path / "test"), "--models-dir", str(tmp_path / "models"),
+              "--out-dir", str(tmp_path / "out")]
+    argv = {
+        "run_eval": common + ["--so3-grid", "72"],
+        "run_detection_eval": common + ["--detector-run", str(tmp_path / "det")],
+        "run_inference_on_example": ["--example-dir", str(tmp_path / "ex"), "--make-example"],
+    }[script]
+    main = importlib.import_module(f"happypose_tpu_torch.scripts.{script}").main
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        main(argv)

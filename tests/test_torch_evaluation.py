@@ -305,3 +305,148 @@ def test_bop19_without_depth_skips_vsd_and_ground_truth_scores_one():
                     pred_scores=np.ones(len(im["TCO_gt"]), np.float32)) for im in images]
     assert _evaluate(tbop, tb, assets, perfect).summary() == {
         "AR_VSD": 1.0, "AR_MSSD": 1.0, "AR_MSPD": 1.0, "bop19_AR": 1.0}
+
+
+# ------------------------------------------- exports and detection metrics
+# numpy on both sides: the port's own copies must give what JAX's give
+
+def _seeded_detections(rs, n_pred=40, n_gt=12, n_labels=3):
+    """Boxes around shared centres, so that predictions overlap the GT, with
+    scores drawn from a few values: ties everywhere."""
+    centres = rs.uniform(20, 200, (n_gt, 2))
+    size = rs.uniform(10, 40, (n_gt, 2))
+    gt = np.concatenate([centres - size, centres + size], 1).astype(np.float32)
+    pick = rs.randint(0, n_gt, n_pred)
+    pred = (gt[pick] + rs.normal(0, 4, (n_pred, 4))).astype(np.float32)
+    gt_labels = rs.randint(0, n_labels, n_gt)
+    pred_labels = np.where(rs.rand(n_pred) < 0.8, gt_labels[pick], rs.randint(0, n_labels, n_pred))
+    scores = rs.choice([0.9, 0.7, 0.5, 0.3], n_pred).astype(np.float32)
+    return pred, pred_labels, scores, gt, gt_labels, rs.rand(n_gt).astype(np.float32)
+
+
+@pytest.mark.parametrize("visib_gt_min", [-1.0, 0.3])
+def test_detection_meter_matches_jax(visib_gt_min):
+    import happypose_tpu.evaluation.detection_meters as jdm
+    import happypose_tpu_torch.evaluation.detection_meters as tdm
+
+    rs = np.random.RandomState(0)
+    ours = tdm.DetectionMeter(iou_threshold=0.5, visib_gt_min=visib_gt_min)
+    ref = jdm.DetectionMeter(iou_threshold=0.5, visib_gt_min=visib_gt_min)
+    for image in range(4):
+        args = _seeded_detections(rs)
+        if image == 3:  # an image without predictions
+            args = (np.zeros((0, 4), np.float32), np.zeros(0, int), np.zeros(0, np.float32)) + args[3:]
+        ours.add(*args)
+        ref.add(*args)
+    a, b = ours.summary(), ref.summary()
+    assert a == b and a["n_matched"] > 5 and 0.0 < a["mAP"] < 1.0
+    np.testing.assert_array_equal(tdm.box_iou(args[3], args[3]), jdm.box_iou(args[3], args[3]))
+    tp = rs.rand(30) < 0.5
+    sc = rs.choice([0.9, 0.5], 30)
+    assert tdm.average_precision(tp, sc, 20) == jdm.average_precision(tp, sc, 20)
+
+
+def test_bop_csv_matches_jax(tmp_path):
+    import happypose_tpu.evaluation.bop_export as jexp
+    import happypose_tpu_torch.evaluation.bop_export as texp
+
+    rs = np.random.RandomState(1)
+    poses = _poses(rs, 6)
+    args = (poses, rs.randint(1, 30, 6), rs.randint(0, 5, 6), rs.randint(0, 900, 6),
+            rs.rand(6).astype(np.float32), rs.rand(6))
+    texp.save_bop_csv(tmp_path / "t.csv", *args)
+    jexp.save_bop_csv(tmp_path / "j.csv", *args)
+    assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+    assert texp.predictions_to_bop_csv(*args[:5]) == jexp.predictions_to_bop_csv(*args[:5])
+    back, ref = texp.load_bop_csv(tmp_path / "j.csv"), jexp.load_bop_csv(tmp_path / "j.csv")
+    assert sorted(back) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(back[k], ref[k], err_msg=k)
+    # millimetres in the file, metres in memory
+    np.testing.assert_allclose(back["poses"], poses, atol=1e-6)
+    t_mm = np.fromstring((tmp_path / "t.csv").read_text().splitlines()[1].split(",")[5], sep=" ")
+    np.testing.assert_allclose(t_mm, poses[0, :3, 3].astype(np.float64) * 1000.0, atol=1e-4)
+
+
+def test_external_detections_match_jax(tmp_path):
+    import json
+
+    import happypose_tpu.evaluation.bop_export as jexp
+    import happypose_tpu_torch.evaluation.bop_export as texp
+
+    rs = np.random.RandomState(2)
+    recs = [{"scene_id": int(s), "image_id": int(i), "category_id": int(c),
+             "bbox": rs.uniform(0, 100, 4).round(2).tolist(),
+             "score": float(rs.choice([0.9, 0.6, 0.6, 0.2]))}
+            for s in (1, 2) for i in (0, 3) for c in rs.randint(1, 4, 6)]
+    del recs[0]["score"]
+    (tmp_path / "dets.json").write_text(json.dumps(recs))
+    targets = [{"scene_id": s, "im_id": i, "obj_id": c, "inst_count": 1 + (c == 2)}
+               for s in (1, 2) for i in (0, 3) for c in (1, 2)]
+    (tmp_path / "targets.json").write_text(json.dumps(targets))
+    ours, ref = (m.load_external_detections(tmp_path / "dets.json") for m in (texp, jexp))
+    kept, kept_ref = (m.keep_best_detections(d, m.load_bop_targets(tmp_path / "targets.json"))
+                      for m, d in ((texp, ours), (jexp, ref)))
+    for a, b in ((ours, ref), (kept, kept_ref)):
+        assert sorted(a) == sorted(b) and len(a) == 4
+        for key in a:
+            assert a[key]["labels"] == b[key]["labels"]
+            np.testing.assert_array_equal(a[key]["boxes"], b[key]["boxes"])
+            np.testing.assert_array_equal(a[key]["scores"], b[key]["scores"])
+    assert all("obj_000003" not in d["labels"] and len(d["labels"]) <= 3 for d in kept.values())
+
+
+def test_coco_export_matches_jax(tmp_path):
+    import happypose_tpu.evaluation.coco_export as jcoco
+    import happypose_tpu_torch.evaluation.coco_export as tcoco
+
+    rs = np.random.RandomState(3)
+    masks = rs.rand(5, 9, 7) > 0.5
+    masks[0] = False
+    masks[1] = True
+    masks[2, 0, 0] = True  # a mask that starts with a 1: the RLE starts with a 0 count
+    for m in masks:
+        rle = tcoco.binary_mask_to_rle(m)
+        assert rle == jcoco.binary_mask_to_rle(m)
+        np.testing.assert_array_equal(tcoco.rle_to_binary_mask(rle), m)
+        np.testing.assert_array_equal(jcoco.rle_to_binary_mask(rle), m)
+    assert tcoco.binary_mask_to_rle(masks[2])["counts"][0] == 0
+    args = (rs.uniform(0, 50, (5, 4)), rs.rand(5), rs.randint(1, 9, 5), np.full(5, 4), np.arange(5))
+    for kw in ({}, {"masks": masks, "times": rs.rand(5)}):
+        a, b = tcoco.detections_to_coco(*args, **kw), jcoco.detections_to_coco(*args, **kw)
+        assert a == b
+    tcoco.save_coco_json(tmp_path / "t.json", a)
+    jcoco.save_coco_json(tmp_path / "j.json", b)
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    assert tcoco.load_coco_json(tmp_path / "j.json") == a
+    np.testing.assert_array_equal(tcoco.rle_to_binary_mask(a[3]["segmentation"]), masks[3])
+
+
+def test_visualizations_match_jax(tmp_path):
+    """Overlays and the glTF export (numpy on both sides): equal arrays,
+    equal bytes but for the generator's name."""
+    import happypose_tpu.visualization as jviz
+    import happypose_tpu.visualization.gltf_export as jgltf
+    import happypose_tpu_torch.visualization as tviz
+    import happypose_tpu_torch.visualization.gltf_export as tgltf
+
+    rs = np.random.RandomState(4)
+    rgb = rs.randint(0, 256, (30, 40, 3)).astype(np.uint8)
+    mask = np.zeros((30, 40), bool)
+    mask[8:20, 10:30] = True
+    render = rs.rand(30, 40, 3).astype(np.float32)
+    np.testing.assert_array_equal(tviz.make_contour_overlay(rgb, mask, dilate=2),
+                                  jviz.make_contour_overlay(rgb, mask, dilate=2))
+    np.testing.assert_array_equal(tviz.make_pose_overlay(rgb, render, mask),
+                                  jviz.make_pose_overlay(rgb, render, mask))
+    boxes = np.asarray([[3.0, 4, 20, 25], [10, 2, 38, 28]])
+    np.testing.assert_array_equal(tviz.draw_boxes(rgb, boxes, labels=["a", "b"]),
+                                  jviz.draw_boxes(rgb, boxes, labels=["a", "b"]))
+    jdb, tdb = _dbs()
+    poses = _poses(rs, 2)
+    cams = _poses(rs, 1)
+    tgltf.export_scene_glb(tmp_path / "t.glb", tdb, ["box", "sphere"], poses, camera_poses=cams)
+    jgltf.export_scene_glb(tmp_path / "j.glb", jdb, ["box", "sphere"], poses, camera_poses=cams)
+    a, b = (tmp_path / "t.glb").read_bytes(), (tmp_path / "j.glb").read_bytes()
+    assert a[:4] == b[:4] == b"glTF"
+    assert a.replace(b"happypose_tpu_torch", b"happypose_tpu") .split(b"BIN\x00")[1] == b.split(b"BIN\x00")[1]
