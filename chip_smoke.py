@@ -15,7 +15,9 @@ Phases (any failure raises, so the exit code is nonzero):
    ~16k-face sphere: at 240x320 at the refiner's batch (B = 16) and the
    coarse batch (B = 288), at 120x160 (the depth refiner's render, B = 2
    and 16, debug mesh) and at 480x640 (a VSD render at the frame's size,
-   B = 8): the per-tile face lists against
+   B = 8), and the two renders of training (the "textured" synthetic set:
+   a batch of 16 scenes at 480x640 and the coarse grid loss's 8 x 8
+   hypotheses at 240x320 in their crop cameras): the per-tile face lists against
    `bin_faces_reference` (integers, exactly), the output against
    `raster_fused_reference` (of the 16k mesh at B = 288 the first 16
    images and at 480x640 the first: the plain version of the whole batch
@@ -107,6 +109,27 @@ Phases (any failure raises, so the exit code is nonzero):
    iterations and 2 frames, `--device cuda` against `--device cpu`.
 19. `run_inference_on_example --make-example` on the card: the three
    output files exist and the overlay PNG decodes.
+20. Training at full width from seeded weights on the "textured" synthetic
+   set (a UV-textured sphere and a box, 768 faces padded; f = 300 px):
+   the refiner (ResNet34, 240x320 rgb + normals renders, 480x640 images,
+   B = 16, 3 iterations, Adam lr 3e-4, 2 warmup steps) and the coarse grid
+   loss (ResNet34 classifier, 8 hypotheses, B = 8), 6 steps each: 1 + 3 and
+   2 launches a step, finite losses, no skipped step, every parameter and
+   BatchNorm statistic moved; s/step of steps 2-6 (the synthetic batch
+   included, and alone), samples/s, peak memory.
+21. The skip on the card: a NaN pixel in a refiner batch; the step reports
+   `skipped_nonfinite` 1 and the parameters, BatchNorm buffers, Adam's
+   state and the schedule's count are bit-equal to before.
+22. bfloat16: both losses at full width with `compute_dtype="bfloat16"`, 3
+   steps each: finite losses, s/step beside fp32's.
+23. Cut refiner training (WideResNet18, 60x80 renders, 120x160 images,
+   B = 4, 2 iterations), the same weights, batch and draws on the card and
+   on the CPU: loss, gradients and running statistics (`CUT_*`).
+24. From training to serving: `run_pose_training` on the card writes a
+   refiner and a coarse run directory (2 epochs of 32, batch 8, 240x320),
+   `eval_refiner_checkpoint` measures the refiner, and `run_eval --model
+   from-checkpoints` reads both runs on 2 frames of phase 15's split: every
+   pose finite, launches as the configs imply.
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line and a JSON line of kernel results, and as its last line
@@ -384,6 +407,11 @@ def phase_kernel(dev) -> dict:
         name = shape_name(mesh, B, res)
         A, bbox = kernel_inputs(mesh, B, dev, res, f)
         result["shapes"][name], err = _check_shape(name, A, bbox, res, n_plain)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+    # the two renders of training: the synthetic batch and the coarse grid's hypotheses
+    for name, (A, bbox, res) in training_kernel_inputs(dev).items():
+        result["shapes"][name], err = _check_shape(
+            name, A, bbox, res, min_hit=0.001 if res == FRAME_RES else None)
         result["max_abs_err"] = max(result["max_abs_err"], err)
     main_shape = result["shapes"][shape_name("debug_1.5k", BATCHES[0], RES)]
     result.update({k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")})
@@ -1490,6 +1518,354 @@ def phase_example(dev, root: Path) -> int:
     return launches
 
 
+# ----------------------------------------------------------------- training
+
+TRAIN_STEPS = 6  # steps 2-6 are timed
+TRAIN_BATCH = {"refiner": 16, "coarse": 8}
+REFINER_ITERATIONS = 3
+GRID_HYPOTHESES = 8
+# Cut training, card against CPU: the loss to CUT_LOSS_RTOL; the pose head's
+# gradient (after every ReLU of the backbone) to CUT_HEAD_REL of its largest
+# entry; the whole gradient to CUT_GLOBAL_L2 and each tensor to CUT_TENSOR_L2
+# in relative L2 norm. A ReLU input within float32 rounding of 0 passes its
+# gradient on one device and not on the other; on the CPU, images moved by
+# 1e-6 (relative) moved the loss by <= 4e-6, the head by <= 5e-5, the whole
+# gradient by <= 5e-3 and single tensors by up to 3% (13% of their largest
+# entry), in every one of 6 seeded batches. The running statistics after the
+# forward to CUT_STATS_RTOL of each buffer's largest entry: iteration 2's
+# poses differ in the last bits, which can move an edge pixel of its render.
+CUT_LOSS_RTOL = 1e-5
+CUT_HEAD_REL = 1e-3
+CUT_GLOBAL_L2 = 2e-2
+CUT_TENSOR_L2 = 0.1
+CUT_STATS_RTOL = 1e-3
+# `run_pose_training` from training to serving: epochs, epoch size, batch
+CLI_EPOCHS, CLI_EPOCH_SIZE, CLI_BATCH = 2, 32, 8
+
+
+def _train_world(dev, role, backbone="resnet34", render=None, image=None, B=16,
+                 n_iterations=REFINER_ITERATIONS, compute_dtype="float32", seed=0):
+    """A pose model from seeded weights on the "textured" synthetic set
+    (a UV-textured sphere and a box, 768 faces padded) with the intrinsics
+    of `run_pose_training` (f = 300 px at `image`): its loss (the refiner's
+    over `n_iterations`, or the coarse grid loss with GRID_HYPOTHESES), a
+    train state (Adam, lr 3e-4, 2 warmup steps) and seeded batches and draws."""
+    from types import SimpleNamespace
+
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
+    from happypose_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from happypose_tpu_torch.training.forward_loss import (
+        make_coarse_grid_loss_fn, make_refiner_loss_fn,
+    )
+    from happypose_tpu_torch.training.synth_data import (
+        make_synth_batch, make_synth_mesh_db, sample_synth_scenes,
+    )
+    from happypose_tpu_torch.utils.random import generator_for
+
+    render, image = render or RES, image or FRAME_RES
+    db = make_synth_mesh_db("textured")
+    assets, meshes = db.render_assets(device=dev), db.batched(n_points=256, device=dev)
+    H, W = image
+    K1 = torch.tensor([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]], device=dev)
+    cfg = PosePredictorConfig(backbone=backbone, render_size=render, compute_dtype=compute_dtype,
+                              predict_pose_update=role == "refiner",
+                              predict_rendered_views_logits=role == "coarse")
+    model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(seed)).to(dev)
+    loss_fn = (
+        make_refiner_loss_fn(model, assets, meshes, n_iterations=n_iterations)
+        if role == "refiner"
+        else make_coarse_grid_loss_fn(model, assets, meshes, n_hypotheses=GRID_HYPOTHESES)
+    )
+
+    def batch(i):
+        return make_synth_batch(assets, K1, sample_synth_scenes(
+            generator_for("synth", seed, i, device=dev), len(db.labels), B, image))
+
+    def draws(b, i):
+        return loss_fn.sample(generator_for("step", seed, i, device=dev), b)
+
+    return SimpleNamespace(
+        db=db, assets=assets, meshes=meshes, K1=K1, model=model, loss_fn=loss_fn, B=B,
+        state=TrainState(model, make_optimizer(model.parameters(), lr=3e-4, n_warmup_steps=2)),
+        step=make_train_step(loss_fn), batch=batch, draws=draws)
+
+
+def training_kernel_inputs(dev) -> dict:
+    """Packed faces of the two renders training makes, from the training
+    path's own tensors: the synthetic batch (16 scenes at 480x640, f = 300
+    px, "textured" set) and the coarse grid loss's hypotheses (8 x 8 at
+    240x320 in their crop cameras). {name: (A, chunk_bbox, resolution)}."""
+    from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
+    from happypose_tpu_torch.lib3d.transforms import make_T, normalize_T
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.training.forward_loss import sample_grid_hypotheses
+    from happypose_tpu_torch.training.synth_data import sample_synth_scenes
+    from happypose_tpu_torch.utils.random import generator_for
+
+    w = _train_world(dev, "coarse", B=TRAIN_BATCH["coarse"])
+    B = TRAIN_BATCH["refiner"]
+    d = sample_synth_scenes(generator_for("synth", 0, 0, device=dev), len(w.db.labels), B, FRAME_RES)
+    TCO = make_T(d["R"], torch.cat([d["xy"], d["z"]], dim=-1))
+    fd, attrs = rf.face_inputs(w.assets.select(d["obj_ids"]), TCO, w.K1.expand(B, 3, 3))
+    shapes = {f"synth_textured_B{B}_480x640": (
+        *rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, FRAME_RES), FRAME_RES)}
+
+    b = w.batch(0)
+    inst0 = w.meshes.select(b.obj_ids)
+    grid_R = torch.from_numpy(load_SO3_grid(576)).to(dev)
+    hyp, _, _ = sample_grid_hypotheses(b.TCO_gt, inst0.symmetries, inst0.symmetries_mask, grid_R,
+                                       w.draws(b, 0))
+    n = GRID_HYPOTHESES
+    T = normalize_T(hyp.reshape(-1, 4, 4))
+    ids = b.obj_ids.repeat_interleave(n)
+    inst = w.meshes.select(ids)
+    K_crop = w.model._crop_inputs(
+        b.images.repeat_interleave(n, 0), b.K.repeat_interleave(n, 0), T, T[:, :3, 3],
+        inst.points, inst.points_mask)[1]
+    fd, attrs = rf.face_inputs(w.assets.select(ids), T, K_crop)
+    shapes[f"coarse_grid_B{len(T)}"] = (
+        *rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, RES), RES)
+    return shapes
+
+
+def _parameters_and_buffers(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _train_steps(w, n_steps, first=0):
+    """`n_steps` steps of `w`; returns (metrics, seconds a step with its
+    batch, seconds of the batch alone, launches a step)."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    metrics, times, data_times, launches = [], [], [], []
+    for i in range(first, first + n_steps):
+        rf.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = w.batch(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics.append(w.step(w.state, b, w.draws(b, i)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        data_times.append(t1 - t0)
+        launches.append(rf.launches)
+    return metrics, times, data_times, launches
+
+
+def _step_profile(w, i) -> str:
+    """One train step of `w` under `torch.profiler`: its wall time, the
+    device kernels and copies and their time (the device's busy share), and
+    the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = w.batch(i)
+    d = w.draws(b, i)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(lambda: w.step(w.state, b, d))
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in device) / 1e3
+    top = sorted(device, key=lambda e: e.device_time_total, reverse=True)[:6]
+    return (f"profiled step (batch outside) {wall * 1e3:.1f} ms, "
+            f"{sum(e.count for e in device)} device kernels and copies taking {busy:.1f} ms "
+            f"(busy {busy / (wall * 1e3):.2f}); most device time: " + ", ".join(
+                f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.1f} ms" for e in top))
+
+
+def phase_training(dev) -> tuple:
+    """Refiner (ResNet34, 240x320 rgb + normals renders, 480x640 images,
+    B = 16, 3 iterations) and coarse grid training (ResNet34 classifier, 8
+    hypotheses, B = 8) at full width: TRAIN_STEPS steps each from seeded
+    weights, steps 2-6 timed. Returns ({role: figures}, {path: launches},
+    the refiner's world)."""
+    figures, launches, refiner = {}, {}, None
+    for role, per_step in (("refiner", 1 + REFINER_ITERATIONS), ("coarse", 2)):
+        w = _train_world(dev, role, B=TRAIN_BATCH[role])
+        before = _parameters_and_buffers(w.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, data_times, n_launch = _train_steps(w, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = _parameters_and_buffers(w.model)
+        unmoved = [k for k in before if not k.endswith("num_batches_tracked")
+                   and torch.equal(before[k], after[k])]
+        s_step = statistics.median(times[1:])
+        figures[role] = {"s_per_step": s_step, "samples_per_s": w.B / s_step, "peak_gib": peak,
+                         "s_batch": statistics.median(data_times[1:])}
+        extra = (f", coarse_acc {[round(m['coarse_acc'], 3) for m in metrics]}"
+                 if role == "coarse" else "")
+        log(f"train {role} full width (ResNet34, render {RES}, images {FRAME_RES}, B={w.B}"
+            f"{', 3 iterations' if role == 'refiner' else f', {GRID_HYPOTHESES} hypotheses'}): "
+            f"launches a step {n_launch}, expected {per_step}; loss "
+            f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
+            f"{[round(m['grad_norm'], 3) for m in metrics]}{extra}; s/step (steps 2-{TRAIN_STEPS}, "
+            f"batch included) {_fmt(times[1:])}, of it the synthetic batch "
+            f"{figures[role]['s_batch']:.4f}; {figures[role]['samples_per_s']:.1f} samples/s; "
+            f"peak memory {peak:.2f} GiB; first step {times[0]:.3f} s")
+        assert n_launch == [per_step] * TRAIN_STEPS, f"{role}: launches {n_launch}"
+        assert all(math.isfinite(m["loss"]) and m["loss"] > 0 for m in metrics)
+        assert all(m["skipped_nonfinite"] == 0 for m in metrics)
+        assert not unmoved, f"{role}: parameters or BatchNorm statistics did not move: {unmoved[:5]}"
+        launches[f"train {role} ({TRAIN_STEPS} steps)"] = sum(n_launch)
+        log(f"train {role}: " + _step_profile(w, TRAIN_STEPS))
+        if role == "refiner":
+            refiner = w
+    return figures, launches, refiner
+
+
+def phase_training_skip(dev, w) -> int:
+    """A NaN pixel in one image of a full-width refiner batch: the step is
+    skipped and the parameters, BatchNorm buffers, Adam's state and the
+    schedule's count are bit-equal to before."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    b = w.batch(1000)
+    H, W = b.images.shape[2:]
+    b.images[-1, :, H // 4, W // 3] = float("nan")
+    draws = w.draws(b, 1000)
+    before = _parameters_and_buffers(w.model)
+    adam = {i: {k: v.clone() for k, v in st.items()}
+            for i, st in w.state.optimizer.adam.state_dict()["state"].items()}
+    count, n_step = w.state.optimizer.count, w.state.step
+    rf.launches = 0
+    m = w.step(w.state, b, draws)
+    launches = rf.launches
+    after = _parameters_and_buffers(w.model)
+    adam_after = w.state.optimizer.adam.state_dict()["state"]
+    same = all(torch.equal(before[k], after[k]) for k in before) and all(
+        torch.equal(v, adam_after[i][k]) for i in adam for k, v in adam[i].items())
+    log(f"train skip: a NaN pixel in the last of {w.B} images: skipped_nonfinite {m['skipped_nonfinite']}, "
+        f"loss {m['loss']}, grad_norm {m['grad_norm']}; parameters, buffers and Adam's state "
+        f"bit-equal {same}; count {count} -> {w.state.optimizer.count}; {launches} launches")
+    assert m["skipped_nonfinite"] == 1.0 and m["loss"] == 0.0 and m["grad_norm"] == 0.0
+    assert same and w.state.optimizer.count == count and w.state.step == n_step + 1
+    return launches
+
+
+def phase_training_bf16(dev, figures: dict) -> int:
+    """Both losses at full width with `compute_dtype="bfloat16"`: 3 steps
+    each (the first warms cuDNN up), finite losses, s/step beside fp32's."""
+    n_launches = 0
+    for role in ("refiner", "coarse"):
+        w = _train_world(dev, role, B=TRAIN_BATCH[role], compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, _, launches = _train_steps(w, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s_step = statistics.median(times[1:])
+        fp32 = figures[role]
+        figures[f"{role}_bf16"] = {"s_per_step": s_step, "samples_per_s": w.B / s_step,
+                                   "peak_gib": peak}
+        log(f"train {role} bf16 full width: loss {[round(m['loss'], 5) for m in metrics]}; s/step "
+            f"{_fmt(times[1:])} ({w.B / s_step:.1f} samples/s, peak {peak:.2f} GiB) beside fp32 "
+            f"{fp32['s_per_step']:.4f} ({fp32['samples_per_s']:.1f} samples/s, peak "
+            f"{fp32['peak_gib']:.2f} GiB)")
+        assert all(math.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0 for m in metrics)
+        n_launches += sum(launches)
+    return n_launches
+
+
+def phase_training_cross_check(dev) -> int:
+    """Cut refiner training (WideResNet18, 60x80 renders, 120x160 images,
+    B = 4, 2 iterations) on the card and on the CPU: the same weights, one
+    batch and its draws made on the CPU and moved to the card. The loss,
+    the gradients (CUT_* tolerances) and the BatchNorm running statistics
+    after the forward (CUT_STATS_RTOL)."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    cut = dict(backbone="wide_resnet18", render=(60, 80), image=(120, 160), B=4, n_iterations=2)
+    cpu = _train_world(torch.device("cpu"), "refiner", **cut)
+    card = _train_world(dev, "refiner", **cut)
+    b = cpu.batch(0)
+    d = cpu.draws(b, 0)
+    out = {}
+    rf.launches = 0
+    for name, w, bb, dd in (("cpu", cpu, b, d),
+                            ("cuda", card, b.to(dev), {k: v.to(dev) for k, v in d.items()})):
+        loss, _ = w.loss_fn(bb, dd)
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad.cpu() for n, p in w.model.named_parameters()},
+                     {n: v.cpu() for n, v in w.model.named_buffers() if "running" in n})
+    launches = rf.launches
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    head = ((g_gpu["pose_fc.weight"] - g_cpu["pose_fc.weight"]).abs().max()
+            / g_cpu["pose_fc.weight"].abs().max()).item()
+    flat = lambda g: torch.cat([v.flatten() for v in g.values()])  # noqa: E731
+    glob = ((flat(g_gpu) - flat(g_cpu)).norm() / flat(g_cpu).norm()).item()
+    per = {n: ((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm()).item() for n in g_cpu}
+    worst = max(per, key=per.get)
+    stats = max(((s_gpu[n] - s_cpu[n]).abs().max() / s_cpu[n].abs().max()).item() for n in s_cpu)
+    log(f"train cut cuda vs cpu (WideResNet18, 60x80, B=4, 2 iterations): loss {l_gpu:.7f} / "
+        f"{l_cpu:.7f} (rel {abs(l_gpu - l_cpu) / l_cpu:.2e}); head gradient {head:.2e} of its max; "
+        f"whole gradient L2 {glob:.2e}; worst tensor {worst} L2 {per[worst]:.2e}; median tensor "
+        f"L2 {statistics.median(per.values()):.2e}; running stats {stats:.2e} of their max; "
+        f"{launches} launches "
+        f"on the card")
+    assert abs(l_gpu - l_cpu) <= CUT_LOSS_RTOL * l_cpu
+    assert head <= CUT_HEAD_REL and glob <= CUT_GLOBAL_L2 and per[worst] <= CUT_TENSOR_L2
+    assert stats <= CUT_STATS_RTOL
+    assert launches == 2
+    return launches
+
+
+def phase_train_cli(dev, root: Path, data: dict) -> dict:
+    """From training to serving: `run_pose_training` on the card writes a
+    refiner and a coarse run directory (CLI_EPOCHS epochs of CLI_EPOCH_SIZE,
+    batch CLI_BATCH, 240x320 renders, 480x640 images, "textured" set), `eval_refiner_checkpoint`
+    measures the refiner, and `run_eval --model from-checkpoints` reads both
+    runs and estimates poses on 2 frames of the written split."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import eval_refiner_checkpoint, run_pose_training
+    from happypose_tpu_torch.scripts import run_eval as run_eval_cli
+    from happypose_tpu_torch.utils.load_model import spec_from_checkpoints
+
+    runs = root / "train_runs"
+    common = ["--data", "synth", "--synth-set", "textured", "--epochs", str(CLI_EPOCHS),
+              "--epoch-size", str(CLI_EPOCH_SIZE), "--batch-size", str(CLI_BATCH),
+              "--render-size", *map(str, RES), "--image-size", *map(str, FRAME_RES),
+              "--device", str(dev)]
+    n_steps = CLI_EPOCHS * (CLI_EPOCH_SIZE // CLI_BATCH)
+    launches = {}
+    for role, extra, per_step in (("refiner", ["--n-iterations", "2"], 3),
+                                  ("coarse", ["--model-type", "coarse"], 2)):
+        rf.launches = 0
+        rc, t = _timed(lambda: run_pose_training.main(["--run-dir", str(runs / role)] + common + extra))
+        launches[f"run_pose_training {role} ({n_steps} steps)"] = rf.launches
+        lines = [json.loads(x) for x in (runs / role / "log.txt").read_text().splitlines()]
+        log(f"run_pose_training {role}: {t:.2f} s, launches {rf.launches} (expected "
+            f"{n_steps * per_step}); epochs {[{k: round(v, 4) for k, v in x.items()} for x in lines]}")
+        assert rc == 0 and rf.launches == n_steps * per_step and len(lines) == CLI_EPOCHS
+        assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in lines)
+
+    rf.launches = 0
+    rc, t = _timed(lambda: eval_refiner_checkpoint.main([
+        "--run-dir", str(runs / "refiner"), "--n-batches", "2", "--batch-size", str(CLI_BATCH),
+        "--image-size", *map(str, FRAME_RES), "--n-iterations", "3", "--device", str(dev)]))
+    summary = json.loads((runs / "refiner" / "refiner_eval.json").read_text())
+    launches["eval_refiner_checkpoint (2 batches)"] = rf.launches
+    log(f"eval_refiner_checkpoint: {t:.2f} s, launches {rf.launches}; "
+        f"{ {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }")
+    assert rc == 0 and rf.launches == 2 * (1 + 3)
+    assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
+
+    icfg = spec_from_checkpoints({"refiner": runs / "refiner", "coarse": runs / "coarse"}).inference_cfg
+    rf.launches = 0
+    res, t = _timed(lambda: run_eval_cli.run([
+        "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+        "--model", "from-checkpoints", "--checkpoints", str(runs), "--max-frames", "2",
+        "--out-dir", str(root / "eval_trained"), "--device", str(dev)]))
+    expected = sum(_frame_launches(icfg, D, icfg.SO3_grid_size) for D in data["n_per_frame"][:2])
+    launches["run_eval from-checkpoints, trained runs (2 frames)"] = rf.launches
+    poses = [r["poses"] for r in res["predictions"]]
+    log(f"run_eval --model from-checkpoints on the trained runs: {t:.2f} s, {len(poses)} frames, "
+        f"{sum(len(p) for p in poses)} poses, launches {rf.launches} (expected {expected}); "
+        f"summary { {k: round(v, 4) for k, v in res['summary'].items() if isinstance(v, float)} }")
+    assert len(poses) == 2 and all(np.isfinite(p).all() and len(p) > 0 for p in poses)
+    assert rf.launches == expected
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -1519,6 +1895,14 @@ def main() -> None:
         launches["run_eval detector->cosypose-RGB (8 frames)"] = phase_detector_eval(dev, root, data)
         phase_run_eval_cross_check(dev, root, data)
         launches["run_inference_on_example"] = phase_example(dev, root)
+        figures, train_launches, refiner = phase_training(dev)
+        launches.update(train_launches)
+        launches["train skip (1 step)"] = phase_training_skip(dev, refiner)
+        del refiner
+        launches["train bf16 (3 steps each)"] = phase_training_bf16(dev, figures)
+        launches["train cut cuda (1 step)"] = phase_training_cross_check(dev)
+        launches.update(phase_train_cli(dev, root, data))
+        log(f"training figures: {json.dumps(figures)}")
     print(json.dumps({"kernels": [{
         "name": "raster_fused",
         "route": "cuda",

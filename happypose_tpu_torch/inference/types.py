@@ -21,6 +21,10 @@ class ObservationBatch:
     depth: Optional[torch.Tensor] = None
 
     @property
+    def batch_size(self) -> int:
+        return self.rgb.shape[0]
+
+    @property
     def images(self) -> torch.Tensor:
         """[B, 3(+1), H, W] with depth as the 4th channel when present."""
         if self.depth is None:
@@ -140,6 +144,15 @@ class PoseEstimateBatch:
         return PoseEstimateBatch(
             **{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)}
         )
+
+    def mask_where(self, keep: torch.Tensor) -> "PoseEstimateBatch":
+        """The same rows, valid where they were valid and `keep` holds."""
+        return replace_valid(self, self.valid & keep)
+
+
+def replace_valid(pe: PoseEstimateBatch, valid: torch.Tensor) -> PoseEstimateBatch:
+    """`pe` with its validity mask replaced (the other fields are shared)."""
+    return dataclasses.replace(pe, valid=valid)
 
 
 @dataclass(frozen=True)

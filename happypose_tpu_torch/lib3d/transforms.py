@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
+import math
+from typing import Sequence, Tuple
+
 import torch
 
-from happypose_tpu_torch.lib3d.rotations import rotmat_from_ortho6d
+from happypose_tpu_torch.lib3d.rotations import euler_to_rotmat, rotmat_from_ortho6d
 
 
 def transform_pts(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -51,3 +54,42 @@ def T_to_pose9d(T: torch.Tensor) -> torch.Tensor:
 def normalize_T(T: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize the rotation block via a 9D round-trip."""
     return pose9d_to_T(T_to_pose9d(T))
+
+
+def sample_pose_noise(
+    generator: torch.Generator,
+    batch_size: int,
+    euler_deg_std: Sequence[float] = (15.0, 15.0, 15.0),
+    trans_std: Sequence[float] = (0.01, 0.01, 0.05),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draw of `add_pose_noise`: gaussian euler angles [B, 3] (radians)
+    and translations [B, 3] (m), on the generator's device."""
+    dev = generator.device
+    euler = torch.randn(batch_size, 3, generator=generator, device=dev) * (
+        torch.tensor(euler_deg_std, device=dev) * (math.pi / 180.0)
+    )
+    trans = torch.randn(batch_size, 3, generator=generator, device=dev) * torch.tensor(
+        trans_std, device=dev
+    )
+    return euler, trans
+
+
+def apply_pose_noise(
+    TCO: torch.Tensor, euler_rad: torch.Tensor, trans: torch.Tensor
+) -> torch.Tensor:
+    """Right-multiply the rotation by the euler noise, add the translation
+    noise: [B, 4, 4] -> [B, 4, 4]."""
+    R = TCO[:, :3, :3] @ euler_to_rotmat(euler_rad.to(TCO.dtype))
+    return make_T(R, TCO[:, :3, 3] + trans.to(TCO.dtype))
+
+
+def add_pose_noise(
+    generator: torch.Generator,
+    TCO: torch.Tensor,
+    euler_deg_std: Sequence[float] = (15.0, 15.0, 15.0),
+    trans_std: Sequence[float] = (0.01, 0.01, 0.05),
+) -> torch.Tensor:
+    """Gaussian SE(3) noise on poses (the refiner's training input): a draw
+    from `generator`, then `apply_pose_noise`."""
+    euler, trans = sample_pose_noise(generator, TCO.shape[0], euler_deg_std, trans_std)
+    return apply_pose_noise(TCO, euler, trans)

@@ -6,6 +6,11 @@ The convolutions go to cuDNN on the card.
 
 Layout is NCHW, PyTorch's own; the Flax model runs NHWC, and the weight
 bridge (`utils/weights_from_jax.py`) converts its kernels.
+
+In train mode BatchNorm follows Flax's (`momentum=0.9`): it normalizes with
+the batch's biased variance and moves the running variance towards that
+same biased variance, where `nn.BatchNorm2d` would move it towards the
+unbiased one (larger by n / (n - 1), 1.3% at a 4x5 map and B = 4).
 """
 
 from __future__ import annotations
@@ -13,13 +18,33 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm's default epsilon
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode update of the running statistics
+    is Flax's: ra = 0.9 ra + 0.1 batch, with the biased batch variance,
+    computed in float32 whatever the input's dtype. Both buffers move in
+    one `_foreach_lerp_`; `num_batches_tracked` stays as loaded (the
+    momentum is fixed, and Flax keeps no count). The statistics take a
+    pass of their own before `F.batch_norm` (cuDNN on the card) normalizes:
+    a refiner step is bound by the host's launches, not by these bytes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            torch._foreach_lerp_([self.running_mean, self.running_var], [mean, var],
+                                 self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
 
 
 class BasicBlockV1(nn.Module):

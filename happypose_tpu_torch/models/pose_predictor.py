@@ -12,6 +12,16 @@ head (ortho6d or quaternion; the refiner and the CosyPose coarse model) or
 return the rendered-view logits (MegaPose coarse hypothesis classifier).
 The pose head starts at the identity update, so an untrained refiner is a
 no-op.
+
+Training differentiates the network only. Each iteration detaches its input
+pose, so iteration k + 1 does not train iteration k, and renders under
+`torch.no_grad()`: the rasterizer has no backward pass, in the JAX package
+(`stop_gradient` on the pose and the renders) as here, so the CUDA kernel
+gets no `torch.autograd.Function` and runs forward only. With
+`compute_dtype="bfloat16"` the crop's matrix products and the backbone run
+in bfloat16 (`torch.autocast`); the parameters, the BatchNorm statistics
+and the heads stay in float32, as Flax promotes the features to the heads'
+float32.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ class PosePredictorConfig:
     # ortho6d (9 outputs) | quaternion (7 outputs, the CosyPose models' head)
     pose_head: str = "ortho6d"
     crop_lamb: float = 1.4
+    compute_dtype: str = "float32"  # float32 | bfloat16 (the backbone and the crop)
 
     @property
     def n_views(self) -> int:
@@ -149,7 +160,8 @@ class PosePredictor(nn.Module):
             center, boxes_rend, boxes_rend, lamb=self.cfg.crop_lamb, im_size=(H, W)
         )
         images_crop = crop_images_matmul(
-            images, boxes_crop, output_size=self.cfg.render_size, sampling_ratio=4
+            images, boxes_crop, output_size=self.cfg.render_size, sampling_ratio=4,
+            matmul_dtype=self._lowp_dtype,
         )
         K_crop = get_K_crop_resize(K, boxes_crop, self.cfg.render_size)
         return images_crop, K_crop, boxes_rend, boxes_crop
@@ -215,12 +227,24 @@ class PosePredictor(nn.Module):
             ).reshape(B, -1, h, w)
         return images_crop, renders
 
+    @property
+    def _lowp_dtype(self):
+        return torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """Backbone features [B, n_features] in float32."""
+        if self._lowp_dtype is None:
+            return self.backbone(x)
+        with torch.autocast(device_type=x.device.type, dtype=self._lowp_dtype):
+            feats = self.backbone(x)
+        return feats.float()
+
     # ---------- one iteration ----------
 
     def _iteration(self, images, K, obj_ids, TCO_input, assets, meshes):
         cfg = self.cfg
         B = TCO_input.shape[0]
-        TCO_input = normalize_T(TCO_input)
+        TCO_input = normalize_T(TCO_input).detach()
         tCR = TCO_input[:, :3, 3]
         images_crop, K_crop, boxes_rend, boxes_crop = self._crop_inputs(
             images, K, TCO_input, tCR, meshes.points, meshes.points_mask
@@ -236,10 +260,11 @@ class PosePredictor(nn.Module):
         )
         if not cfg.remove_TCO_rendering:
             KV_crop = torch.cat([K_crop[:, None], KV_crop[:, 1:]], dim=1)
-        renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
+        with torch.no_grad():
+            renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
         images_crop, renders = self._normalize_images(images_crop, renders, tCR)
 
-        feats = self.backbone(torch.cat([images_crop, renders], dim=1))
+        feats = self._features(torch.cat([images_crop, renders], dim=1))
         if cfg.predict_pose_update:
             pose_raw = self.pose_fc(feats)
             if cfg.pose_head == "quaternion":

@@ -13,7 +13,7 @@ per row. Plain matrix products, left to `torch.matmul`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,14 +47,20 @@ def roi_align_matmul(
     boxes: torch.Tensor,  # [B, 4] (x1, y1, x2, y2)
     output_size: Tuple[int, int],
     sampling_ratio: int = 4,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """One ROI per image -> [B, C, out_h, out_w]."""
+    """One ROI per image -> [B, C, out_h, out_w] in the images' dtype.
+    `matmul_dtype` (bfloat16 for a bfloat16 CNN) runs both products in that
+    dtype; the interpolation matrices are built in the images' dtype."""
     _, _, H, W = images.shape
     out_h, out_w = output_size
+    dtype = images.dtype
     Ry = _axis_matrix(boxes[:, 1], boxes[:, 3] - boxes[:, 1], H, out_h, sampling_ratio)
     Rx = _axis_matrix(boxes[:, 0], boxes[:, 2] - boxes[:, 0], W, out_w, sampling_ratio)
+    if matmul_dtype is not None:
+        Ry, Rx, images = Ry.to(matmul_dtype), Rx.to(matmul_dtype), images.to(matmul_dtype)
     tmp = torch.einsum("bih,bchw->bciw", Ry, images)
-    return torch.einsum("bciw,bjw->bcij", tmp, Rx)
+    return torch.einsum("bciw,bjw->bcij", tmp, Rx).to(dtype)
 
 
 def crop_images_matmul(
@@ -62,10 +68,12 @@ def crop_images_matmul(
     boxes: torch.Tensor,
     output_size: Tuple[int, int],
     sampling_ratio: int = 4,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """RGB(+depth) crop; with a depth channel, crop pixels whose sampling
-    touched missing depth (0) get depth 0."""
-    crops = roi_align_matmul(images, boxes, output_size, sampling_ratio)
+    touched missing depth (0) get depth 0 (that test stays in the images'
+    dtype, whatever `matmul_dtype`)."""
+    crops = roi_align_matmul(images, boxes, output_size, sampling_ratio, matmul_dtype)
     if images.shape[1] == 4:
         depth_valid = (images[:, 3:4] > 0).to(images.dtype)
         valid_crop = roi_align_matmul(depth_valid, boxes, output_size, sampling_ratio)

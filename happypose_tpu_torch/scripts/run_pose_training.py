@@ -1,0 +1,215 @@
+"""Train a pose model (refiner or coarse classifier) on one device.
+
+PyTorch port of `happypose_tpu/scripts/run_pose_training.py` (parity
+targets: the reference's train_megapose.py:96-459 and
+cosypose/training/train_pose.py:252-520): epochs of steps, a JSON-lines log
+(`log.txt`, one line an epoch with the JAX package's keys), checkpoints
+that are run directories of the port (`utils/checkpoint.py`), resume,
+warm start, the refiner's iteration curriculum and in-training evaluation.
+
+Data: `--data synth` renders random scenes through the rasterizer on
+`--device` (default `cuda`; the hand-written kernel there, its plain
+version on the CPU). Training from a BOP split (`--data <dir>`, `--stream`)
+needs `datasets/pose_dataset.py`, and `--dp` needs `torch.distributed`:
+both raise until they are ported.
+
+Usage:
+  python -m happypose_tpu_torch.scripts.run_pose_training \
+      --run-dir /tmp/run --model-type refiner --data synth \
+      --epochs 2 --epoch-size 64 --batch-size 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from happypose_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--run-dir", type=Path, required=True)
+    p.add_argument("--model-type", choices=["refiner", "coarse"], default="refiner")
+    p.add_argument("--backbone", default="wide_resnet18")
+    p.add_argument("--data", default="synth")
+    p.add_argument("--synth-set", default="debug", choices=["debug", "textured", "mesh_only"],
+                   help="synthetic mesh registry (textured = procedural textures)")
+    p.add_argument("--mesh-files", type=Path, nargs="*", default=None,
+                   help="extra mesh files added to the synth registry (mm -> m, "
+                        "procedural texture when UVs exist)")
+    p.add_argument("--max-faces", type=int, default=0,
+                   help="decimate synth meshes above this face count (0 = keep)")
+    p.add_argument("--epochs", type=int, default=2)
+    p.add_argument("--epoch-size", type=int, default=64)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--n-warmup-steps", type=int, default=50)
+    p.add_argument("--n-iterations", type=int, default=1)
+    p.add_argument("--coarse-negatives", choices=["grid", "multiview"], default="grid",
+                   help="coarse negatives: random SO(3)-grid rotations sharing the "
+                        "positive's translation, or the reference's sphere-26 multiview")
+    p.add_argument("--coarse-hypotheses", type=int, default=8,
+                   help="hypotheses per sample for --coarse-negatives grid")
+    p.add_argument("--add-iteration-epoch-interval", type=int, default=0,
+                   help="add one refiner iteration every K epochs (up to "
+                        "--n-iterations-max; the reference's curriculum)")
+    p.add_argument("--n-iterations-max", type=int, default=3)
+    p.add_argument("--render-size", type=int, nargs=2, default=(120, 160))
+    p.add_argument("--image-size", type=int, nargs=2, default=(120, 160))
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="epochs between in-training refiner evals (0 = off)")
+    p.add_argument("--save-every", type=int, default=10,
+                   help="epochs between checkpoint writes (the final epoch always "
+                        "saves; 0 = final epoch only)")
+    p.add_argument("--stream", action="store_true",
+                   help="stream training frames from WDS tar shards")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--init-from", type=Path, default=None,
+                   help="warm-start weights from another run dir; optimizer state and "
+                        "epoch counter start fresh")
+    p.add_argument("--dp", action="store_true", help="data-parallel over devices")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of the first epoch to "
+                        "<run-dir>/trace/trace.json")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the model, the renders and the data")
+    args = p.parse_args(argv)
+
+    if args.dp:
+        raise NotImplementedError(
+            "--dp needs torch.distributed, not ported yet (ROADMAP.md queue 1, item 9)")
+    if args.data != "synth" or args.stream:
+        raise NotImplementedError(
+            "training from a BOP split (--data <dir>, --stream) needs "
+            "datasets/pose_dataset.py, not ported yet (ROADMAP.md queue 1, item 5)")
+
+    from happypose_tpu_torch.lib3d.rotations import geodesic_distance
+    from happypose_tpu_torch.lib3d.transforms import apply_pose_noise, sample_pose_noise
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
+    from happypose_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from happypose_tpu_torch.training.forward_loss import (
+        make_coarse_grid_loss_fn, make_coarse_loss_fn, make_refiner_loss_fn,
+    )
+    from happypose_tpu_torch.training.synth_data import (
+        make_synth_batch, make_synth_mesh_db, sample_synth_scenes,
+    )
+    from happypose_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from happypose_tpu_torch.utils.load_model import STATE_DICT_FILE, read_state_dict
+    from happypose_tpu_torch.utils.profiling import device_trace
+    from happypose_tpu_torch.utils.random import generator_for
+
+    dev = torch.device(args.device)
+
+    # ---- data ----
+    db = make_synth_mesh_db(args.synth_set, args.mesh_files, max_faces=args.max_faces)
+    assets = db.render_assets(device=dev)
+    bm = db.batched(n_points=256, device=dev)
+    H, W = args.image_size
+    K1 = torch.tensor([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]], device=dev)
+
+    def synth_batch(epoch, i):
+        return make_synth_batch(assets, K1, sample_synth_scenes(
+            generator_for("synth", epoch, i, device=dev), n_objects=len(db.labels),
+            batch_size=args.batch_size, resolution=(H, W)))
+
+    def batches(epoch):
+        for i in range(args.epoch_size // args.batch_size):
+            yield synth_batch(epoch, i)
+
+    # ---- model ----
+    cfg = PosePredictorConfig(
+        backbone=args.backbone,
+        render_size=tuple(args.render_size),
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        predict_pose_update=args.model_type == "refiner",
+        predict_rendered_views_logits=args.model_type == "coarse",
+    )
+    model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(0))
+    if args.init_from is not None:
+        model.load_state_dict(read_state_dict(args.init_from))
+        logger.info(f"warm-started weights from {args.init_from}")
+    model.to(dev)
+
+    def build_loss(n_iterations):
+        if args.model_type == "refiner":
+            return make_refiner_loss_fn(model, assets, bm, n_iterations=n_iterations)
+        if args.coarse_negatives == "grid":
+            return make_coarse_grid_loss_fn(model, assets, bm, n_hypotheses=args.coarse_hypotheses)
+        return make_coarse_loss_fn(model, assets, bm)
+
+    total_steps = args.epochs * (args.epoch_size // args.batch_size)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), lr=args.lr, n_warmup_steps=args.n_warmup_steps,
+        total_steps=total_steps))
+    start_epoch = 0
+    if args.resume and (args.run_dir / STATE_DICT_FILE).exists():
+        state, start_epoch = load_checkpoint(args.run_dir, state)
+        logger.info(f"resumed from epoch {start_epoch}")
+
+    cur_iters = args.n_iterations
+    loss_fn = build_loss(cur_iters)
+    step_fn = make_train_step(loss_fn)
+
+    # in-training eval: refine noised ground truth on a fixed held-out batch
+    eval_fn = None
+    if args.eval_every and args.model_type == "refiner":
+        eval_batch = synth_batch(999983, 0)
+        eval_noise = sample_pose_noise(
+            generator_for("eval", 424242, device=dev), args.batch_size)
+
+        @torch.no_grad()
+        def eval_fn():
+            TCO_init = apply_pose_noise(eval_batch.TCO_gt, *eval_noise)
+            out = model.eval()(
+                eval_batch.images, eval_batch.K, eval_batch.obj_ids, TCO_init, assets,
+                bm.select(eval_batch.obj_ids), n_iterations=2)
+            T, gt = out.TCO_output[-1], eval_batch.TCO_gt
+            return {
+                "eval_trans_err": float(
+                    torch.linalg.vector_norm(T[:, :3, 3] - gt[:, :3, 3], dim=-1).mean()),
+                "eval_rot_err_deg": float(
+                    geodesic_distance(T[:, :3, :3], gt[:, :3, :3]).mean()) * 180.0 / np.pi,
+            }
+
+    args.run_dir.mkdir(parents=True, exist_ok=True)
+    log_path = args.run_dir / "log.txt"
+    for epoch in range(start_epoch, args.epochs):
+        if args.add_iteration_epoch_interval and args.model_type == "refiner":
+            want = min(args.n_iterations + epoch // args.add_iteration_epoch_interval,
+                       args.n_iterations_max)
+            if want != cur_iters:
+                cur_iters = want
+                logger.info(f"curriculum: n_iterations -> {cur_iters}")
+                loss_fn = build_loss(cur_iters)
+                step_fn = make_train_step(loss_fn)
+        t0 = time.time()
+        epoch_metrics = []
+        trace_dir = args.run_dir / "trace" if (args.profile and epoch == start_epoch) else None
+        with device_trace(trace_dir):
+            for i, batch in enumerate(batches(epoch)):
+                draws = loss_fn.sample(generator_for("step", epoch, i, device=dev), batch)
+                epoch_metrics.append(step_fn(state, batch, draws))
+        avg = {k: float(np.mean([m[k] for m in epoch_metrics])) for k in epoch_metrics[0]}
+        avg.update(epoch=epoch, time=time.time() - t0)
+        if eval_fn is not None and (epoch + 1) % args.eval_every == 0:
+            avg.update(eval_fn())
+        with open(log_path, "a") as f:
+            f.write(json.dumps(avg) + "\n")
+        logger.info(f"epoch {epoch}: loss={avg['loss']:.4f} ({avg['time']:.1f}s)")
+        if (args.save_every and (epoch + 1) % args.save_every == 0) or epoch + 1 == args.epochs:
+            save_checkpoint(args.run_dir, state, epoch + 1,
+                            config=vars(args) | {"cfg": str(cfg)})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,9 @@ dicts (e.g. carried over from Flax by `utils.weights_from_jax`), or read
 from a run directory of the port: `config.json` (the JAX package's keys:
 `backbone`, `render_size`, `bf16` for a pose model; `fpn_channels`,
 `image_size` for a detector) beside `state_dict.pt` (`torch.save` of a
-state dict, read with `weights_only=True`; `save_run_dir` writes both).
+state dict, read with `weights_only=True`; `save_run_dir` writes both; a
+training run, `utils/checkpoint.py`, adds `state_dict_last.pt`, which is
+read when `state_dict.pt` is corrupt).
 Reading the JAX package's msgpack checkpoints needs Flax and is not ported.
 
 Every render goes where its tensors live: a model loaded on a CUDA device
@@ -19,6 +21,7 @@ caller asks for `device="cpu"`, as the tests do.
 from __future__ import annotations
 
 import json
+import pickle
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Tuple, Union
@@ -34,6 +37,9 @@ from happypose_tpu_torch.models.pose_predictor import (
     PosePredictor,
     PosePredictorConfig,
 )
+from happypose_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 @dataclass
@@ -86,6 +92,8 @@ NAMED_MODELS: Dict[str, NamedModelSpec] = {
 
 
 STATE_DICT_FILE = "state_dict.pt"
+# what `torch.load` raises for a truncated or corrupt file
+UNREADABLE = (RuntimeError, EOFError, OSError, pickle.UnpicklingError)
 
 
 def save_run_dir(
@@ -104,14 +112,40 @@ def save_run_dir(
     return run_dir
 
 
-def _read_state_dict(run_dir: Union[str, Path]) -> Dict[str, torch.Tensor]:
+def last_copy(path: Path) -> Path:
+    """`state_dict.pt` -> `state_dict_last.pt`: the copy a training run
+    writes after the first file, read when the first is corrupt."""
+    return path.with_name(f"{path.stem}_last{path.suffix}")
+
+
+def read_state_dict(run_dir: Union[str, Path]) -> Dict[str, torch.Tensor]:
     path = Path(run_dir) / STATE_DICT_FILE
     if not path.exists():
         raise FileNotFoundError(
             f"no {STATE_DICT_FILE} in {run_dir}: a run directory of the port "
             "is config.json beside state_dict.pt"
         )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except UNREADABLE as e:
+        if not last_copy(path).exists():
+            raise
+        logger.warning(f"{path} unreadable ({e}); reading {last_copy(path).name}")
+        return torch.load(last_copy(path), map_location="cpu", weights_only=True)
+
+
+def config_from_run_dir(run_dir: Union[str, Path], coarse: bool) -> PosePredictorConfig:
+    """The pose model of a run directory's `config.json`: a refiner, or
+    with `coarse` a hypothesis classifier (`backbone`, `render_size`;
+    `bf16` -> `compute_dtype="bfloat16"`)."""
+    c = json.loads((Path(run_dir) / "config.json").read_text())
+    return PosePredictorConfig(
+        backbone=c.get("backbone", "wide_resnet18"),
+        render_size=tuple(c.get("render_size", (120, 160))),
+        compute_dtype="bfloat16" if c.get("bf16") else "float32",
+        predict_pose_update=not coarse,
+        predict_rendered_views_logits=coarse,
+    )
 
 
 def spec_from_checkpoints(
@@ -120,25 +154,10 @@ def spec_from_checkpoints(
 ) -> NamedModelSpec:
     """Build a spec from run directories' own saved configs, so any run can
     be evaluated without a matching named spec."""
-
-    def cfg_from(run_dir, coarse: bool) -> PosePredictorConfig:
-        c = json.loads((Path(run_dir) / "config.json").read_text())
-        if c.get("bf16"):
-            raise NotImplementedError(
-                f"{run_dir}: the run was trained in bfloat16; the port "
-                "computes in float32 only"
-            )
-        return PosePredictorConfig(
-            backbone=c.get("backbone", "wide_resnet18"),
-            render_size=tuple(c.get("render_size", (120, 160))),
-            predict_pose_update=not coarse,
-            predict_rendered_views_logits=coarse,
-        )
-
     return NamedModelSpec(
-        refiner_cfg=cfg_from(checkpoint_dirs["refiner"], coarse=False),
+        refiner_cfg=config_from_run_dir(checkpoint_dirs["refiner"], coarse=False),
         coarse_cfg=(
-            cfg_from(checkpoint_dirs["coarse"], coarse=True)
+            config_from_run_dir(checkpoint_dirs["coarse"], coarse=True)
             if "coarse" in checkpoint_dirs else None
         ),
         inference_cfg=inference_cfg or InferenceConfig(),
@@ -168,7 +187,7 @@ def load_named_model(
     spec = name if isinstance(name, NamedModelSpec) else NAMED_MODELS[name]
     state_dicts = dict(state_dicts or {})
     for role, run_dir in (checkpoint_dirs or {}).items():
-        state_dicts.setdefault(role, _read_state_dict(run_dir))
+        state_dicts.setdefault(role, read_state_dict(run_dir))
 
     def build(cfg: PosePredictorConfig, role: str, model_seed: int) -> PosePredictor:
         model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(model_seed))
@@ -216,7 +235,7 @@ def load_detector(
             if c.get("image_size"):
                 image_size = tuple(int(v) for v in c["image_size"])
         cfg = DetectorConfig(n_classes=n_classes, fpn_channels=fpn_channels)
-        state_dict = _read_state_dict(run_dir)
+        state_dict = read_state_dict(run_dir)
     model = FCOSDetector(cfg).init_weights(torch.Generator().manual_seed(seed))
     if state_dict is not None:
         model.load_state_dict(state_dict)

@@ -143,7 +143,8 @@ def test_runner_and_timer_default_to_the_card():
     assert inspect.signature(DeviceTimer.__init__).parameters["device"].default == "cuda"
 
 
-CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example"]
+CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example",
+        "run_pose_training", "eval_refiner_checkpoint", "eval_coarse_checkpoint"]
 
 
 @pytest.mark.parametrize("script", CLIS)
@@ -153,7 +154,9 @@ def test_cli_device_defaults_to_the_card(script):
     assert re.search(r'add_argument\(\s*"--device",\s*default="cuda"', source), script
 
 
-@pytest.mark.parametrize("script", ["run_eval", "run_detection_eval", "run_inference_on_example"])
+@pytest.mark.parametrize("script", ["run_eval", "run_detection_eval", "run_inference_on_example",
+                                    "run_pose_training", "eval_refiner_checkpoint",
+                                    "eval_coarse_checkpoint"])
 def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
     """Without `--device cpu` a CLI asks PyTorch for the card: where there
     is none it fails with PyTorch's own error; it does not fall back. (Where
@@ -176,12 +179,24 @@ def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
         visib_fract=np.ones(1, np.float32))])
     cfg = DetectorConfig(n_classes=1, fpn_channels=8)
     save_run_dir(tmp_path / "det", FCOSDetector(cfg).state_dict(), {"fpn_channels": 8})
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
+
+    for role in ("refiner", "coarse"):
+        pose_cfg = PosePredictorConfig(backbone="wide_resnet18", render_size=(24, 32),
+                                       predict_pose_update=role == "refiner",
+                                       predict_rendered_views_logits=role == "coarse")
+        save_run_dir(tmp_path / role, PosePredictor(pose_cfg).state_dict(),
+                     {"backbone": "wide_resnet18", "render_size": [24, 32]})
     common = ["--split-dir", str(tmp_path / "test"), "--models-dir", str(tmp_path / "models"),
               "--out-dir", str(tmp_path / "out")]
     argv = {
         "run_eval": common + ["--so3-grid", "72"],
         "run_detection_eval": common + ["--detector-run", str(tmp_path / "det")],
         "run_inference_on_example": ["--example-dir", str(tmp_path / "ex"), "--make-example"],
+        "run_pose_training": ["--run-dir", str(tmp_path / "run")],
+        "eval_refiner_checkpoint": ["--run-dir", str(tmp_path / "refiner")],
+        "eval_coarse_checkpoint": ["--coarse-dir", str(tmp_path / "coarse"), "--split-dir",
+                                   str(tmp_path / "test"), "--models-dir", str(tmp_path / "models")],
     }[script]
     main = importlib.import_module(f"happypose_tpu_torch.scripts.{script}").main
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):

@@ -30,7 +30,11 @@ def test_port_imports_no_jax():
                  "evaluation.detection_meters", "evaluation.prediction_runner",
                  "scripts.run_eval", "scripts.run_full_eval", "scripts.run_detection_eval",
                  "scripts.run_inference_on_example", "visualization.plotter",
-                 "visualization.gltf_export"):
+                 "visualization.gltf_export", "training.losses", "training.forward_loss",
+                 "training.synth_data", "training.trainer", "utils.checkpoint",
+                 "utils.profiling", "utils.random", "scripts.run_pose_training",
+                 "scripts.eval_refiner_checkpoint", "scripts.eval_coarse_checkpoint",
+                 "scripts.plot_training_log", "scripts.supervise"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

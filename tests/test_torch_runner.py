@@ -482,9 +482,9 @@ def test_run_directories(world, run_dirs, tmp_path):
     with pytest.raises(ValueError, match="n_classes"):
         lm.load_detector(run_dirs / "detector", device="cpu")
     (tmp_path / "config.json").write_text(json.dumps({"bf16": True}))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        lm.spec_from_checkpoints({"refiner": tmp_path})
+    assert lm.spec_from_checkpoints({"refiner": tmp_path}).refiner_cfg.compute_dtype == "bfloat16"
     spec = lm.spec_from_checkpoints({"refiner": run_dirs / "megapose" / "refiner",
                                      "coarse": run_dirs / "megapose" / "coarse"})
     assert spec.coarse_cfg.predict_rendered_views_logits and not spec.coarse_cfg.predict_pose_update
     assert spec.refiner_cfg.render_size == (48, 64) and spec.refiner_cfg.backbone == "wide_resnet18"
+    assert spec.refiner_cfg.compute_dtype == "float32"
