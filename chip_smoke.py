@@ -17,7 +17,8 @@ Phases (any failure raises, so the exit code is nonzero):
    and 16, debug mesh) and at 480x640 (a VSD render at the frame's size,
    B = 8), and the two renders of training (the "textured" synthetic set:
    a batch of 16 scenes at 480x640 and the coarse grid loss's 8 x 8
-   hypotheses at 240x320 in their crop cameras): the per-tile face lists against
+   hypotheses at 240x320 in their crop cameras), and the recorder's two
+   (phase 25): the per-tile face lists against
    `bin_faces_reference` (integers, exactly), the output against
    `raster_fused_reference` (of the 16k mesh at B = 288 the first 16
    images and at 480x640 the first: the plain version of the whole batch
@@ -130,9 +131,38 @@ Phases (any failure raises, so the exit code is nonzero):
    `eval_refiner_checkpoint` measures the refiner, and `run_eval --model
    from-checkpoints` reads both runs on 2 frames of phase 15's split: every
    pose finite, launches as the configs imply.
+25. The recorder (`datasets/scene_record.py`) at full width: the "textured"
+   set of phase 20 under BOP labels plus the floor (512 faces), 2-4
+   objects a scene, 480x640, 16 scenes a batch (M = 80 instances), shadows
+   at 256, 2 batches: 2 launches a batch, scenes/s on the device, the
+   accepted frames written as a BOP scene (frames/s written). Phase 3 holds
+   the kernel at both of its shapes (the instances at 480x640, B = 80, and
+   the shadow pass at 256x256, B = 80). Then one cut batch (2 scenes,
+   120x160, shadows at 64) on the card and on the CPU with the same draws
+   and noise (`REC_*` limits).
+26. `record_synthetic_dataset --wds` on the card: 32 frames at 480x640,
+   BOP layout, models and tar shards; `BOPSceneDataset` and
+   `WebSceneDataset` read back the same frames (frames/s of each reader).
+27. Pose training from that split at full width: the refiner (ResNet34,
+   240x320 rgb + normals, 480x640 images, B = 16, 3 iterations), 6 steps
+   through `PoseDataset` with `device_cache` and 6 through
+   `StreamingPoseDataset`: finite losses, 3 launches a step, s/step of
+   steps 2-6 beside phase 20's synthetic s/step, peak memory;
+   `device_cache` batches equal the host path's bit for bit; then
+   `eval_refiner_checkpoint --split-dir` on the run (3 launches a batch).
+28. Detector training at full width (ResNet50-FPN, 256 channels, 16
+   prototypes) on the split at 240x320, B = 8, 6 steps: finite losses,
+   every parameter and BatchNorm statistic moved, s/step, peak memory, the
+   mAP hook; then a cut step (FPN 32, 120x160, B = 2) on the card and on
+   the CPU with the same weights, batch and jitter (`DET_CUT_*` limits).
+29. The CLIs end to end: `run_pose_training --data --stream`,
+   `run_detector_training` writes a run directory and `run_eval --model
+   cosypose-RGB --detections detector` reads it on 2 frames of the split:
+   every pose finite, launches as the config implies.
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
-nvidia-smi line and a JSON line of kernel results, and as its last line
+nvidia-smi line (first, and again before the kernel results), a JSON line
+of kernel results, and as its last line
 `{"ok": true, "device": {...}}`. TF32 is off throughout.
 """
 
@@ -277,14 +307,18 @@ def random_poses(B: int, seed: int, z=(0.3, 0.6)) -> torch.Tensor:
     return T
 
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    log(smi)
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -408,8 +442,9 @@ def phase_kernel(dev) -> dict:
         A, bbox = kernel_inputs(mesh, B, dev, res, f)
         result["shapes"][name], err = _check_shape(name, A, bbox, res, n_plain)
         result["max_abs_err"] = max(result["max_abs_err"], err)
-    # the two renders of training: the synthetic batch and the coarse grid's hypotheses
-    for name, (A, bbox, res) in training_kernel_inputs(dev).items():
+    # the two renders of training (the synthetic batch, the coarse grid's
+    # hypotheses) and the recorder's two (its instances, its shadow pass)
+    for name, (A, bbox, res) in {**training_kernel_inputs(dev), **recorder_kernel_inputs(dev)}.items():
         result["shapes"][name], err = _check_shape(
             name, A, bbox, res, min_hit=0.001 if res == FRAME_RES else None)
         result["max_abs_err"] = max(result["max_abs_err"], err)
@@ -1866,6 +1901,407 @@ def phase_train_cli(dev, root: Path, data: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------- training from disk
+
+RECORD_BATCH = 16  # scenes a recorder batch
+RECORD_SHADOW = 256  # shadow map side
+RECORD_BATCHES = 2
+RECORD_CUT = dict(res=(120, 160), shadow=64, scenes=2)
+# The recorder, card against CPU on one cut batch with the same draws and
+# noise. The kernel equals its plain version bit for bit, so the renders,
+# the composite's depth and the annotations (integer counts and pixel
+# coordinates of the same masks) are expected equal; shading, specular,
+# blur and noise are float32 elementwise work that the two devices round
+# differently in the last bits, and rounding to 8 bits turns such a
+# difference into one level where a value lies near a half level.
+REC_RGB_LEVELS, REC_RGB_SHARE = 1, 0.995
+REC_PX_ATOL, REC_BBOX_ATOL, REC_DEPTH_ATOL = 2, 1.0, 1e-5
+SPLIT_FRAMES = 32  # frames `record_synthetic_dataset` writes for phases 26-29
+DISK_STEPS = 6  # steps of each training from disk; 2-6 are timed
+DET_BATCH, DET_RES = 8, RES
+# Cut detector training, card against CPU (FPN 32, 120x160, B = 2, one
+# step): BatchNorm in train mode divides by the spread of 2 x 4 x 5 values
+# at C5, so float32 rounding of 50+ layers is amplified; on the CPU the
+# port's float32 outputs lay 3.5e-5 to 4.7e-4 of their largest entry from a
+# float64 run. Loss to DET_CUT_LOSS_RTOL, each head's gradient to
+# DET_CUT_HEAD_REL of its largest entry, the running statistics to
+# DET_CUT_STATS_RTOL of each buffer's largest. The heads are those with no
+# ReLU between them and the loss (the prototypes' last convolution has
+# one: an output within rounding of 0 passes its gradient on one device
+# only).
+DET_CUT_LOSS_RTOL = 1e-4
+DET_CUT_HEAD_REL = 1e-3
+DET_CUT_STATS_RTOL = 1e-3
+DET_HEADS = ("cls_head", "box_head", "ctr_head", "coef_head")
+
+
+def _recorder(dev, res=None, scenes=None, shadow=None, seed=0):
+    """The recorder on the "textured" set of phase 20 (under BOP labels)
+    plus the floor, 2-4 objects a scene; by default at FRAME_RES with
+    RECORD_BATCH scenes a batch and RECORD_SHADOW shadows."""
+    from happypose_tpu_torch.datasets.scene_record import BatchedSceneRecorder
+    from happypose_tpu_torch.datasets.scene_synth import SceneSynthConfig
+    from happypose_tpu_torch.scripts.record_synthetic_dataset import builtin_mesh_db
+
+    return BatchedSceneRecorder(
+        builtin_mesh_db("textured"), SceneSynthConfig(resolution=res or FRAME_RES), seed=seed,
+        batch_scenes=scenes or RECORD_BATCH, shadow_size=shadow or RECORD_SHADOW, device=dev)
+
+
+def recorder_kernel_inputs(dev) -> dict:
+    """Packed faces of the recorder's two renders of its first batch, from
+    the recorder's own inputs: the instances at the frame's size and the
+    shadow pass from the light cameras. {name: (A, chunk_bbox, resolution)}."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    rec = _recorder(dev)
+    _, inp = rec._sample_batch()
+    so, ids, M = inp["scene_of"], inp["obj_ids"], len(inp["obj_ids"])
+    inst = rec.assets.select(ids)
+    T_LO = torch.einsum("mij,mjk->mik", inp["T_LC"][so], inp["TCO"])
+    shapes = {}
+    for name, T, K, res in (
+            (f"recorder_instances_B{M}_{FRAME_RES[0]}x{FRAME_RES[1]}", inp["TCO"], inp["K"][so],
+             FRAME_RES),
+            (f"recorder_shadow_B{M}_{RECORD_SHADOW}x{RECORD_SHADOW}", T_LO, inp["K_L"][so],
+             (RECORD_SHADOW, RECORD_SHADOW))):
+        fd, attrs = rf.face_inputs(inst, T, K)
+        shapes[name] = (*rf.pack_faces(fd.u, fd.v, fd.inv_z, fd.valid, attrs, res), res)
+    return shapes
+
+
+def phase_recorder(dev, root: Path) -> dict:
+    """The recorder at full width: RECORD_BATCHES batches of RECORD_BATCH
+    scenes at 480x640 with shadows at 256: 2 launches a batch, scenes/s on
+    the device, accepted frames written as a BOP scene (frames/s written);
+    then one cut batch on the card and on the CPU with the same draws and
+    noise."""
+    from happypose_tpu_torch.datasets.bop import SceneObservation, write_bop_scene
+    from happypose_tpu_torch.datasets.scene_record import record_scene_batch
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    rec = _recorder(dev)
+    rf.launches = 0
+    frames, times = [], []
+    for _ in range(RECORD_BATCHES):
+        (scenes, out), t = _timed(rec.record_batch)
+        times.append(t)
+        frames += [f for f in rec.frames_of(scenes, out) if f is not None]
+    launches = rf.launches
+    n_scenes = RECORD_BATCHES * RECORD_BATCH
+    obs = [SceneObservation(rgb=f.rgb, K=f.K, depth=f.depth, obj_labels=f.labels, TWO=f.TCO,
+                            bboxes=f.bboxes, visib_fract=f.visib_fract, view_id=i, TWC=f.TWC)
+           for i, f in enumerate(frames)]
+    _, t_write = _timed(lambda: write_bop_scene(root / "recorded", 0, obs))
+    figures = {"s_per_batch": times, "scenes_per_s": RECORD_BATCH / statistics.median(times),
+               "frames_accepted": len(frames), "frames_written_per_s": len(frames) / t_write}
+    log(f"recorder full width (textured set + floor, {FRAME_RES}, {RECORD_BATCH} scenes a batch, "
+        f"M = {rec.batch_scenes * rec.n_max}, shadows {RECORD_SHADOW}): {RECORD_BATCHES} batches, "
+        f"launches {launches} (expected {2 * RECORD_BATCHES}); s/batch {_fmt(times)} (the first "
+        f"includes warm-up), {figures['scenes_per_s']:.1f} scenes/s on the device; "
+        f"{len(frames)} of {n_scenes} frames accepted; written as PNG + json in {t_write:.3f} s "
+        f"({figures['frames_written_per_s']:.1f} frames/s)")
+    assert launches == 2 * RECORD_BATCHES, launches
+    assert len(frames) >= n_scenes // 4
+    for f in frames:
+        assert f.rgb.shape == (*FRAME_RES, 3) and f.rgb.dtype == np.uint8
+        assert np.isfinite(f.depth).all() and f.depth.max() > 0.1
+        assert (f.visib_fract > 0).all() and (f.visib_fract <= 1).all()
+
+    # one cut batch, card against CPU: the same inputs, noise drawn on the CPU
+    c = RECORD_CUT
+    outs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        r = _recorder(d, res=c["res"], scenes=c["scenes"], shadow=c["shadow"], seed=3)
+        _, inp = r._sample_batch()
+        noise = torch.randn(c["scenes"], *c["res"], 3, generator=torch.Generator().manual_seed(5))
+        outs[name] = [x.cpu() for x in record_scene_batch(
+            r.assets, noise=noise.to(d), n_scenes=c["scenes"], resolution=c["res"],
+            shadow_size=c["shadow"], bg_pool=r.bg_pool, **inp)]
+    from happypose_tpu_torch.datasets.scene_record import RecordBatch
+
+    a, b = RecordBatch(*outs["cpu"]), RecordBatch(*outs["cuda"])
+    d_rgb = (a.rgb.int() - b.rgb.int()).abs()
+    share = (d_rgb <= REC_RGB_LEVELS).float().mean().item()
+    shown = a.visib_px > 0
+    px = max((a.visib_px - b.visib_px).abs().max().item(), (a.solo_px - b.solo_px).abs().max().item())
+    bb = (a.bbox[shown] - b.bbox[shown]).abs().max().item() if shown.any() else 0.0
+    dd = (a.depth - b.depth).abs().max().item()
+    log(f"recorder cut card vs cpu ({c['scenes']} scenes, {c['res'][0]}x{c['res'][1]}, shadow "
+        f"{c['shadow']}): rgb within {REC_RGB_LEVELS} level on {share:.6f} of values (max "
+        f"{int(d_rgb.max())}), equal on {(d_rgb == 0).float().mean().item():.6f}; visib/solo px "
+        f"max diff {px}; bbox max diff {bb}; depth max diff {dd:.3g} m; any_vis "
+        f"{a.any_vis.tolist()} / {b.any_vis.tolist()}")
+    assert share >= REC_RGB_SHARE and px <= REC_PX_ATOL and bb <= REC_BBOX_ATOL
+    assert dd <= REC_DEPTH_ATOL and torch.equal(a.any_vis, b.any_vis)
+    assert torch.equal(a.border_bad, b.border_bad) and shown.any()
+    figures["launches"] = launches
+    return figures
+
+
+def phase_record_cli(dev, root: Path) -> dict:
+    """`record_synthetic_dataset --wds` on the card: SPLIT_FRAMES frames at
+    480x640 in BOP layout and tar shards; `BOPSceneDataset` and
+    `WebSceneDataset` read back the same frames."""
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
+    from happypose_tpu_torch.datasets.scene_record import BatchedSceneRecorder
+    from happypose_tpu_torch.datasets.web_scene_dataset import WebSceneDataset
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import record_synthetic_dataset
+
+    out = root / "synth_split"
+    batches = []  # one entry a batch the CLI's recorder renders
+    record_batch = BatchedSceneRecorder.record_batch
+    BatchedSceneRecorder.record_batch = lambda self, *a: batches.append(1) or record_batch(self, *a)
+    try:
+        rf.launches = 0
+        rc, t = _timed(lambda: record_synthetic_dataset.main([
+            "--out-dir", str(out), "--n-frames", str(SPLIT_FRAMES), "--resolution",
+            *map(str, FRAME_RES), "--batch-scenes", str(RECORD_BATCH), "--builtin-set", "textured",
+            "--write-models", "--wds", "--shard-size", "8", "--device", str(dev)]))
+        launches = rf.launches
+    finally:
+        BatchedSceneRecorder.record_batch = record_batch
+    (bop, t_bop), (wds, t_wds) = _timed(lambda: BOPSceneDataset(out, load_depth=True)), _timed(
+        lambda: WebSceneDataset(out / "wds"))
+    reads = {}
+    for name, ds in (("bop", bop), ("wds", wds)):
+        t0 = time.perf_counter()
+        reads[name] = [ds[i] for i in range(len(ds))]
+        reads[name + "_fps"] = len(ds) / (time.perf_counter() - t0)
+    n_inst = sum(len(o.obj_labels) for o in reads["bop"])
+    log(f"record_synthetic_dataset --wds: {t:.2f} s for {SPLIT_FRAMES} frames ({SPLIT_FRAMES / t:.1f} "
+        f"frames/s, recording and writing), launches {launches} in {len(batches)} batches (2 a batch), {n_inst} instances; "
+        f"read back: BOP {reads['bop_fps']:.1f} frames/s, WDS {reads['wds_fps']:.1f} frames/s")
+    assert rc == 0 and len(batches) >= math.ceil(SPLIT_FRAMES / RECORD_BATCH)
+    assert launches == 2 * len(batches), (launches, len(batches))
+    assert len(bop) == len(wds) == SPLIT_FRAMES
+    for a, b in zip(reads["bop"], reads["wds"]):
+        assert np.array_equal(a.rgb, b.rgb) and list(a.obj_labels) == list(b.obj_labels)
+        assert np.abs(a.TWO - b.TWO).max() <= 1e-6 and np.abs(a.depth - b.depth).max() <= 1e-6
+    db = BOPObjectDataset(out / "models").mesh_db
+    assert db.labels == ["obj_000001", "obj_000002"]
+    return {"split": out, "models": out / "models", "db": db, "launches": launches,
+            "frames_per_s": SPLIT_FRAMES / t, "bop_read_fps": reads["bop_fps"],
+            "wds_read_fps": reads["wds_fps"]}
+
+
+def _disk_world(dev, split: dict):
+    """A refiner at phase 20's width on the recorded objects: ResNet34,
+    240x320 rgb + normals renders, 3 iterations, Adam lr 3e-4, 2 warmup steps."""
+    from types import SimpleNamespace
+
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
+    from happypose_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from happypose_tpu_torch.training.forward_loss import make_refiner_loss_fn
+    from happypose_tpu_torch.utils.random import generator_for
+
+    db = split["db"]
+    assets, meshes = db.render_assets(device=dev), db.batched(n_points=256, device=dev)
+    cfg = PosePredictorConfig(backbone="resnet34", render_size=RES, predict_pose_update=True,
+                              predict_rendered_views_logits=False)
+    model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(0)).to(dev)
+    loss_fn = make_refiner_loss_fn(model, assets, meshes, n_iterations=REFINER_ITERATIONS)
+    return SimpleNamespace(
+        model=model, loss_fn=loss_fn, step=make_train_step(loss_fn),
+        state=TrainState(model, make_optimizer(model.parameters(), lr=3e-4, n_warmup_steps=2)),
+        draws=lambda b, i: loss_fn.sample(generator_for("step", 0, i, device=dev), b))
+
+
+def phase_train_from_disk(dev, root: Path, split: dict, synth_s_step: float) -> dict:
+    """The refiner at full width (480x640 images, B = 16) on the recorded
+    split: DISK_STEPS steps through `PoseDataset` with `device_cache`, then
+    DISK_STEPS through `StreamingPoseDataset`; `device_cache` batches equal
+    the host path's; `eval_refiner_checkpoint --split-dir` on the run."""
+    from happypose_tpu_torch.datasets.bop import BOPSceneDataset
+    from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
+    from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDataset
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import eval_refiner_checkpoint
+    from happypose_tpu_torch.utils.checkpoint import save_checkpoint
+
+    B = TRAIN_BATCH["refiner"]
+    scene_ds = BOPSceneDataset(split["split"], cache_frames=True)
+    kw = dict(batch_size=B, resolution=FRAME_RES, device=str(dev), seed=4)
+    host, cached = iter(PoseDataset(scene_ds, split["db"], **kw)), iter(
+        PoseDataset(scene_ds, split["db"], device_cache=True, **kw))
+    for _ in range(2):
+        a, b = next(host), next(cached)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), "device_cache differs from the host path"
+    w = _disk_world(dev, split)
+    figures, launches = {}, {}
+    stream = StreamingPoseDataset(str(split["split"] / "wds"), split["db"], chunk_frames=16, **kw)
+    try:
+        for name, it in (("pose_dataset_device_cache", cached), ("streaming", iter(stream))):
+            metrics, times, data_times, n_launch = [], [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(DISK_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(it)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rf.launches = 0
+                metrics.append(w.step(w.state, batch, w.draws(batch, i)))
+                torch.cuda.synchronize()
+                n_launch.append(rf.launches)
+                times.append(time.perf_counter() - t0)
+                data_times.append(t1 - t0)
+            s_step = statistics.median(times[1:])
+            figures[name] = {"s_per_step": s_step, "samples_per_s": B / s_step,
+                             "s_batch": statistics.median(data_times[1:]),
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            launches[f"train refiner from disk, {name} ({DISK_STEPS} steps)"] = sum(n_launch)
+            log(f"train refiner from disk via {name} (ResNet34, render {RES}, images {FRAME_RES}, "
+                f"B={B}, 3 iterations): launches a step {n_launch}, expected {REFINER_ITERATIONS}; "
+                f"loss {[round(m['loss'], 5) for m in metrics]}; s/step (steps 2-{DISK_STEPS}, "
+                f"batch included) {_fmt(times[1:])}, of it the batch {figures[name]['s_batch']:.4f}; "
+                f"beside phase 20's synthetic {synth_s_step:.4f}; "
+                f"{figures[name]['samples_per_s']:.1f} samples/s; peak {figures[name]['peak_gib']:.2f} GiB")
+            assert n_launch == [REFINER_ITERATIONS] * DISK_STEPS, n_launch
+            assert all(math.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0 for m in metrics)
+    finally:
+        stream.stop()
+
+    run = root / "disk_refiner"
+    save_checkpoint(run, w.state, 1, config={"backbone": "resnet34", "render_size": list(RES)})
+    rf.launches = 0
+    rc, t = _timed(lambda: eval_refiner_checkpoint.main([
+        "--run-dir", str(run), "--split-dir", str(split["split"]), "--models-dir",
+        str(split["models"]), "--n-batches", "2", "--batch-size", "8", "--image-size",
+        *map(str, FRAME_RES), "--n-iterations", "3", "--device", str(dev)]))
+    summary = json.loads((run / "refiner_eval.json").read_text())
+    launches["eval_refiner_checkpoint --split-dir (2 batches)"] = rf.launches
+    log(f"eval_refiner_checkpoint --split-dir: {t:.2f} s, launches {rf.launches} (expected 6); "
+        f"{ {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }")
+    assert rc == 0 and rf.launches == 2 * 3 and summary["data"] == str(split["split"])
+    assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
+    return {"figures": figures, "launches": launches}
+
+
+def _detector_step_world(dev, split: dict, fpn: int, res, B: int, seed=0):
+    """`run_detector_training`'s trainer (seeded model, plain Adam, step) on
+    the recorded objects, and the CLI's batches."""
+    from types import SimpleNamespace
+
+    from happypose_tpu_torch.datasets.bop import BOPSceneDataset
+    from happypose_tpu_torch.scripts.run_detector_training import BatchMaker, make_detector_trainer
+
+    db = split["db"]
+    trainer = make_detector_trainer(len(db.labels), fpn, 1e-4, dev, seed=seed)
+    maker = BatchMaker(BOPSceneDataset(split["split"], cache_frames=True), db.label_to_id, res,
+                       B, 8, dev)
+    return SimpleNamespace(maker=maker, **trainer._asdict())
+
+
+def phase_detector_training(dev, split: dict) -> dict:
+    """The detector at full width (ResNet50-FPN, 256 channels, 16
+    prototypes) on the recorded split at 240x320, B = DET_BATCH, DISK_STEPS
+    steps; the mAP hook; then a cut step on the card and on the CPU."""
+    from happypose_tpu_torch.datasets.augmentations import rgb_jitter, sample_rgb_jitter
+    from happypose_tpu_torch.scripts.run_detector_training import eval_map
+
+    w = _detector_step_world(dev, split, 256, DET_RES, DET_BATCH)
+    before = _parameters_and_buffers(w.model)
+    rng = np.random.RandomState(0)
+    aug = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(DISK_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, targets = w.maker.make(rng)
+        x = rgb_jitter(x, sample_rgb_jitter(aug, x.shape[0]))
+        metrics.append(w.step(w.state, (x, targets), {}))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = _parameters_and_buffers(w.model)
+    unmoved = [k for k in before if not k.endswith("num_batches_tracked")
+               and torch.equal(before[k], after[k])]
+    mAP, t_map = _timed(lambda: eval_map(w.model, w.maker, 8))
+    s_step = statistics.median(times[1:])
+    log(f"detector training full width (ResNet50-FPN 256, 16 prototypes, {DET_RES}, B={DET_BATCH}): "
+        f"loss {[round(m['loss'], 4) for m in metrics]}; s/step (steps 2-{DISK_STEPS}, batch and "
+        f"jitter included) {_fmt(times[1:])}, {DET_BATCH / s_step:.1f} images/s; peak {peak:.2f} "
+        f"GiB; mAP@0.5 hook on 8 frames {mAP:.4f} in {t_map:.2f} s")
+    assert all(math.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0 for m in metrics)
+    assert not unmoved, f"detector parameters or statistics did not move: {unmoved[:5]}"
+    assert 0.0 <= mAP <= 1.0
+
+    # cut: the same weights, batch and jitter on the CPU and on the card
+    cpu = _detector_step_world(torch.device("cpu"), split, 32, (120, 160), 2, seed=1)
+    card = _detector_step_world(dev, split, 32, (120, 160), 2, seed=1)
+    x, targets = cpu.maker.make(np.random.RandomState(2))
+    x = rgb_jitter(x, sample_rgb_jitter(torch.Generator().manual_seed(3), 2))
+    out = {}
+    for name, ww, xx, tt in (("cpu", cpu, x, targets), ("cuda", card, x.to(dev), targets.to(dev))):
+        loss, _ = ww.loss((xx, tt), {})
+        loss.backward()
+        out[name] = (loss.item(), {h: getattr(ww.model, h).weight.grad.cpu() for h in DET_HEADS},
+                     {k: v.cpu() for k, v in ww.model.named_buffers() if "running" in k})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    heads = {h: ((g_gpu[h] - g_cpu[h]).abs().max() / g_cpu[h].abs().max()).item() for h in DET_HEADS}
+    stats = max(((s_gpu[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max()).item() for k in s_cpu)
+    log(f"detector cut cuda vs cpu (FPN 32, 120x160, B=2): loss {l_gpu:.7f} / {l_cpu:.7f} (rel "
+        f"{abs(l_gpu - l_cpu) / l_cpu:.2e}); heads' gradients of their max "
+        f"{ {h: f'{v:.2e}' for h, v in heads.items()} }; running stats {stats:.2e} of their max")
+    assert abs(l_gpu - l_cpu) <= DET_CUT_LOSS_RTOL * l_cpu
+    assert max(heads.values()) <= DET_CUT_HEAD_REL and stats <= DET_CUT_STATS_RTOL
+    return {"s_per_step": s_step, "images_per_s": DET_BATCH / s_step, "peak_gib": peak,
+            "mAP": mAP}
+
+
+def phase_training_clis(dev, root: Path, split: dict) -> dict:
+    """The CLIs end to end on the recorded split: `run_pose_training --data
+    --stream` (1 epoch), `run_detector_training` writes a run directory, and
+    `run_eval --model cosypose-RGB --detections detector` reads it on 2
+    frames of the split: every pose finite, launches as the config implies."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_detector_training, run_pose_training
+    from happypose_tpu_torch.scripts import run_eval as run_eval_cli
+    from happypose_tpu_torch.utils import load_model as lm
+
+    launches = {}
+    rf.launches = 0
+    rc, t = _timed(lambda: run_pose_training.main([
+        "--run-dir", str(root / "stream_run"), "--data", str(split["split"]), "--models-dir",
+        str(split["models"]), "--stream", "--stream-chunk", "16", "--epochs", "1", "--epoch-size",
+        "16", "--batch-size", "8", "--render-size", *map(str, RES), "--image-size",
+        *map(str, FRAME_RES), "--device", str(dev)]))
+    launches["run_pose_training --stream (2 steps)"] = rf.launches
+    (line,) = [json.loads(x) for x in (root / "stream_run" / "log.txt").read_text().splitlines()]
+    log(f"run_pose_training --data --stream: {t:.2f} s, launches {rf.launches} (expected 2), "
+        f"loss {line['loss']:.5f}")
+    assert rc == 0 and rf.launches == 2 and math.isfinite(line["loss"])
+
+    det_run = root / "det_run"
+    rc, t = _timed(lambda: run_detector_training.main([
+        "--run-dir", str(det_run), "--split-dir", str(split["split"]), "--models-dir",
+        str(split["models"]), "--epochs", "1", "--epoch-size", "16", "--batch-size", "8",
+        "--fpn-channels", "256", "--eval-interval", "1", "--device", str(dev)]))
+    (line,) = [json.loads(x) for x in (det_run / "log.txt").read_text().splitlines()]
+    log(f"run_detector_training: {t:.2f} s, epoch {line}")
+    assert rc == 0 and math.isfinite(line["loss"]) and (det_run / "state_dict.pt").exists()
+
+    spec = lm.NAMED_MODELS["cosypose-RGB"]
+    rf.launches = 0
+    res, t = _timed(lambda: run_eval_cli.run([
+        "--split-dir", str(split["split"]), "--models-dir", str(split["models"]),
+        "--model", "cosypose-RGB", "--detections", "detector", "--detector-run", str(det_run),
+        "--detection-th", "0.0", "--max-frames", "2", "--out-dir", str(root / "eval_trained_det"),
+        "--device", str(dev)]))
+    preds = res["predictions"]
+    n_det = [len(r["poses"]) for r in preds]
+    expected = sum(_frame_launches(spec.inference_cfg, D) for D in n_det)
+    launches["run_eval cosypose-RGB, trained detector (2 frames)"] = rf.launches
+    log(f"run_eval --model cosypose-RGB --detections detector (the trained run): {t:.2f} s, "
+        f"detections a frame {n_det}, launches {rf.launches} (expected {expected})")
+    assert len(preds) == 2 and min(n_det) >= 1 and rf.launches == expected
+    assert all(np.isfinite(r["poses"]).all() for r in preds)
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -1903,6 +2339,19 @@ def main() -> None:
         launches["train cut cuda (1 step)"] = phase_training_cross_check(dev)
         launches.update(phase_train_cli(dev, root, data))
         log(f"training figures: {json.dumps(figures)}")
+        recorder = phase_recorder(dev, root)
+        launches[f"recorder ({RECORD_BATCHES} batches)"] = recorder["launches"]
+        split = phase_record_cli(dev, root)
+        launches[f"record_synthetic_dataset ({SPLIT_FRAMES} frames)"] = split["launches"]
+        disk = phase_train_from_disk(dev, root, split, figures["refiner"]["s_per_step"])
+        launches.update(disk["launches"])
+        detector = phase_detector_training(dev, split)
+        launches.update(phase_training_clis(dev, root, split))
+        log("recorder and training-from-disk figures: " + json.dumps({
+            "recorder": recorder, "record_cli": {k: split[k] for k in (
+                "frames_per_s", "bop_read_fps", "wds_read_fps")},
+            "refiner_from_disk": disk["figures"], "detector": detector}))
+    log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",
         "route": "cuda",

@@ -10,8 +10,9 @@ Scene datasets (`make_scene_dataset`):
   "<ds>.bop19"        BOP test split, filtered to test_targets_bop19.json
   "<ds>.pbr"          train_pbr split
   "<ds>.<split>"      any split directory (e.g. "ycbv.train_real")
-  "webdataset.<dir>"  webdataset shard directory: not ported yet, raises
-  "deepim.modelnet-<category>-<split>"  DeepIM-ModelNet frames: the same
+  "webdataset.<dir>"  webdataset shard directory (`WebSceneDataset`)
+  "deepim.modelnet-<category>-<split>"  DeepIM-ModelNet frames: not ported
+                      yet, raises
   "<path>"            any explicit BOP split directory
 
 Object datasets (`make_object_dataset`):
@@ -67,10 +68,9 @@ def make_scene_dataset(
     root = _data_dir(data_dir)
 
     if ds_name.startswith("webdataset."):
-        raise NotImplementedError(
-            f"{ds_name!r}: `web_scene_dataset.py` is not ported yet "
-            "(ROADMAP.md, queue 1, 'the remaining dataset readers')"
-        )
+        from happypose_tpu_torch.datasets.web_scene_dataset import WebSceneDataset
+
+        return WebSceneDataset(ds_name.split(".", 1)[1])
 
     if ds_name.startswith("deepim.modelnet-"):
         raise NotImplementedError(

@@ -43,16 +43,36 @@ def render_scenes(
         light_ambient=light_ambient, light_diffuse=light_diffuse,
         lights=lights,
     )
-    H, W = resolution
-    scene_ids = scene_ids.to(torch.int64)
-    inf = torch.full_like(out.depth, float("inf"))
-    z = torch.where(out.mask & valid[:, None, None], out.depth, inf)  # [N, H, W]
+    return composite(out, scene_ids, valid, n_scenes)[0]
 
+
+def scene_zmin(
+    out: RenderOutput, scene_ids: torch.Tensor, valid: torch.Tensor, n_scenes: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z [N, H, W]: each valid instance's depth, inf where it misses;
+    zmin [n_scenes, H, W]: the nearest of a scene's, inf where none hits)."""
+    H, W = out.depth.shape[1:]
+    z = torch.where(out.mask & valid[:, None, None], out.depth,
+                    torch.full_like(out.depth, float("inf")))
     # per-scene nearest instance per pixel: minimum over an inf-filled target
     zmin = torch.full((n_scenes, H, W), float("inf"), dtype=z.dtype, device=z.device)
     with warnings.catch_warnings():  # "index_reduce() is in beta"
         warnings.filterwarnings("ignore", message="index_reduce", category=UserWarning)
-        zmin.index_reduce_(0, scene_ids, z, "amin", include_self=True)
+        zmin.index_reduce_(0, scene_ids.to(torch.int64), z, "amin", include_self=True)
+    return z, zmin
+
+
+def composite(
+    out: RenderOutput,  # per instance [N, H, W, ...]
+    scene_ids: torch.Tensor,  # [N]
+    valid: torch.Tensor,  # [N]
+    n_scenes: int,
+) -> Tuple[RenderOutput, torch.Tensor]:
+    """Nearest-depth merge of per-instance renders into scenes: the scenes'
+    `RenderOutput` and `is_front` [N, H, W], where each valid instance is
+    the scene's nearest surface."""
+    scene_ids = scene_ids.to(torch.int64)
+    z, zmin = scene_zmin(out, scene_ids, valid, n_scenes)
     is_front = (z == zmin[scene_ids]) & torch.isfinite(z)  # [N, H, W]
 
     def seg(x: torch.Tensor) -> torch.Tensor:
@@ -65,4 +85,4 @@ def render_scenes(
         depth=torch.where(mask, zmin, torch.zeros_like(zmin)),
         mask=mask,
         normals=seg(out.normals),
-    )
+    ), is_front

@@ -6,10 +6,10 @@ initial poses from the training noise model (`--init-mode noise`) or the
 nearest SO(3)-grid rotation with autodepth translation from the projected
 ground-truth box (`--init-mode grid`, what the coarse stage hands the
 refiner), then the pose errors before and after refinement: translation,
-rotation, ADD and the reference's `log6` magnitude. Writes
+rotation, ADD and the reference's `log6` magnitude. With `--split-dir` and
+`--models-dir` the frames come from a BOP split instead (held-out recorded
+frames through `PoseDataset`, no colour jitter). Writes
 `<run-dir>/refiner_eval.json`. Runs on `--device` (default `cuda`).
-Evaluating on a BOP split (`--split-dir`) needs `datasets/pose_dataset.py`
-and raises until it is ported.
 
 Usage:
   python -m happypose_tpu_torch.scripts.eval_refiner_checkpoint \
@@ -40,6 +40,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=12345)
     p.add_argument("--split-dir", type=Path, default=None,
                    help="evaluate on a BOP split instead of synth scenes")
+    p.add_argument("--models-dir", type=Path, default=None,
+                   help="BOP models dir (required with --split-dir)")
     p.add_argument("--out", type=Path, default=None, help="also write the summary json here")
     p.add_argument("--init-mode", choices=["noise", "grid"], default="noise",
                    help="initial poses: ground truth + training noise, or the nearest "
@@ -49,10 +51,8 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device of the model, the renders and the data")
     args = p.parse_args(argv)
-    if args.split_dir is not None:
-        raise NotImplementedError(
-            "--split-dir needs datasets/pose_dataset.py, not ported yet "
-            "(ROADMAP.md queue 1, item 5)")
+    if args.split_dir is not None and args.models_dir is None:
+        p.error("--split-dir needs --models-dir")
 
     from happypose_tpu_torch.lib3d.distances import compute_ADD_L1_loss
     from happypose_tpu_torch.lib3d.pose_init import TCO_init_from_boxes_autodepth_with_R
@@ -67,11 +67,23 @@ def main(argv=None) -> int:
 
     dev = torch.device(args.device)
     cfg_saved = json.loads((args.run_dir / "config.json").read_text())
-    # the mesh registry the run was trained on
-    db = make_synth_mesh_db(
-        cfg_saved.get("synth_set", "debug"), cfg_saved.get("mesh_files") or None,
-        max_faces=int(cfg_saved.get("max_faces") or 0),
-    )
+    split_batches = None
+    if args.split_dir is not None:
+        # held-out BOP frames: refine noised ground truth of recorded frames
+        from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
+        from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
+
+        db = BOPObjectDataset(args.models_dir).mesh_db
+        split_batches = iter(PoseDataset(
+            BOPSceneDataset(args.split_dir, cache_frames=True), db, batch_size=args.batch_size,
+            resolution=tuple(args.image_size), apply_rgb_augmentation=False, seed=args.seed,
+            device=str(dev)))
+    else:
+        # the mesh registry the run was trained on
+        db = make_synth_mesh_db(
+            cfg_saved.get("synth_set", "debug"), cfg_saved.get("mesh_files") or None,
+            max_faces=int(cfg_saved.get("max_faces") or 0),
+        )
     assets = db.render_assets(device=dev)
     bm = db.batched(n_points=256, device=dev)
     H, W = args.image_size
@@ -104,8 +116,11 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for b in range(args.n_batches):
             g = torch.Generator(device=dev).manual_seed(args.seed + b)
-            batch = make_synth_batch(assets, K1, sample_synth_scenes(
-                g, n_objects=len(db.labels), batch_size=args.batch_size, resolution=(H, W)))
+            if split_batches is not None:
+                batch = next(split_batches)
+            else:
+                batch = make_synth_batch(assets, K1, sample_synth_scenes(
+                    g, n_objects=len(db.labels), batch_size=args.batch_size, resolution=(H, W)))
             inst = bm.select(batch.obj_ids)
             TCO_init = init_poses(batch, inst, g)
             TCO_ref = model(batch.images, batch.K, batch.obj_ids, TCO_init, assets, inst,
@@ -120,7 +135,8 @@ def main(argv=None) -> int:
     summary = {k: float(v.mean()) for k, v in values.items()}
     summary.update({f"median_{k}": float(np.median(v)) for k, v in values.items()})
     summary.update(n_samples=args.n_batches * args.batch_size, n_iterations=args.n_iterations,
-                   data="synth", init_mode=args.init_mode)
+                   data=str(args.split_dir) if args.split_dir else "synth",
+                   init_mode=args.init_mode)
     logger.info(json.dumps(summary, indent=1))
     (args.run_dir / "refiner_eval.json").write_text(json.dumps(summary))
     if args.out is not None:

@@ -9,9 +9,13 @@ warm start, the refiner's iteration curriculum and in-training evaluation.
 
 Data: `--data synth` renders random scenes through the rasterizer on
 `--device` (default `cuda`; the hand-written kernel there, its plain
-version on the CPU). Training from a BOP split (`--data <dir>`, `--stream`)
-needs `datasets/pose_dataset.py`, and `--dp` needs `torch.distributed`:
-both raise until they are ported.
+version on the CPU). `--data <dir>` trains on a BOP split with the models
+of `--models-dir` (`datasets/pose_dataset.py`, its frames staged on the
+device when the split has at most 4400), and with `--stream` on the WDS
+shards under `<dir>` or `<dir>/wds` (`datasets/streaming_pose_dataset.py`);
+its batches are drawn in the JAX package's order (one for the model's
+initialization, then the eval batch, then training).
+`--dp` needs `torch.distributed` and raises until it is ported.
 
 Usage:
   python -m happypose_tpu_torch.scripts.run_pose_training \
@@ -34,12 +38,38 @@ from happypose_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 
+def make_pose_dataset(args, mesh_db, dev):
+    """The training batches of `--data <dir>`: the WDS shards under it with
+    `--stream`, else its BOP frames through `PoseDataset`."""
+    from happypose_tpu_torch.datasets.bop import BOPSceneDataset
+    from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
+    from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDataset
+
+    data_dir = Path(args.data)
+    common = dict(batch_size=args.batch_size, resolution=tuple(args.image_size),
+                  apply_rgb_augmentation=not args.no_augment, device=str(dev))
+    if args.stream:
+        wds_dir = next((d for d in (data_dir, data_dir / "wds") if list(d.glob("*.tar"))), None)
+        if wds_dir is None:
+            raise SystemExit(f"--stream: no WDS *.tar shards under {data_dir} "
+                             f"(or {data_dir / 'wds'})")
+        logger.info(f"streaming WDS input from {wds_dir}")
+        return StreamingPoseDataset(str(wds_dir), mesh_db, chunk_frames=args.stream_chunk,
+                                    **common)
+    scene_ds = BOPSceneDataset(data_dir, cache_frames=True)
+    # a uint8 frame of 480x640 is 0.9 MB: 4400 frames take about 4 GB on the device
+    return PoseDataset(scene_ds, mesh_db, device_cache=len(scene_ds) <= 4400, **common)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--run-dir", type=Path, required=True)
     p.add_argument("--model-type", choices=["refiner", "coarse"], default="refiner")
     p.add_argument("--backbone", default="wide_resnet18")
-    p.add_argument("--data", default="synth")
+    p.add_argument("--data", default="synth",
+                   help="'synth', or a BOP split directory (with --models-dir)")
+    p.add_argument("--models-dir", type=Path, default=None,
+                   help="BOP models dir (required for --data <dir>)")
     p.add_argument("--synth-set", default="debug", choices=["debug", "textured", "mesh_only"],
                    help="synthetic mesh registry (textured = procedural textures)")
     p.add_argument("--mesh-files", type=Path, nargs="*", default=None,
@@ -69,8 +99,13 @@ def main(argv=None) -> int:
     p.add_argument("--save-every", type=int, default=10,
                    help="epochs between checkpoint writes (the final epoch always "
                         "saves; 0 = final epoch only)")
+    p.add_argument("--no-augment", action="store_true",
+                   help="no colour jitter of the observed images in split training")
     p.add_argument("--stream", action="store_true",
-                   help="stream training frames from WDS tar shards")
+                   help="stream training frames from the WDS tar shards under --data "
+                        "(<data>/*.tar or <data>/wds/*.tar) through chunks staged on the device")
+    p.add_argument("--stream-chunk", type=int, default=512,
+                   help="frames a streamed chunk")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init-from", type=Path, default=None,
                    help="warm-start weights from another run dir; optimizer state and "
@@ -87,11 +122,28 @@ def main(argv=None) -> int:
     if args.dp:
         raise NotImplementedError(
             "--dp needs torch.distributed, not ported yet (ROADMAP.md queue 1, item 9)")
-    if args.data != "synth" or args.stream:
-        raise NotImplementedError(
-            "training from a BOP split (--data <dir>, --stream) needs "
-            "datasets/pose_dataset.py, not ported yet (ROADMAP.md queue 1, item 5)")
+    if args.data != "synth" and args.models_dir is None:
+        p.error("--data <dir> needs --models-dir")
+    if args.stream and args.data == "synth":
+        p.error("--stream reads the WDS shards of a recorded split: give --data <dir>")
 
+    dev = torch.device(args.device)
+    db = pose_ds = None
+    if args.data != "synth":
+        from happypose_tpu_torch.datasets.bop import BOPObjectDataset
+
+        db = BOPObjectDataset(args.models_dir).mesh_db
+        pose_ds = make_pose_dataset(args, db, dev)
+    try:
+        return train(args, dev, db, pose_ds)
+    finally:
+        if hasattr(pose_ds, "stop"):  # the stream's decode thread
+            pose_ds.stop()
+
+
+def train(args, dev, db, pose_ds) -> int:
+    """The training loop of `main`: synthetic batches when `pose_ds` is
+    None, else `pose_ds`'s over the mesh database `db`."""
     from happypose_tpu_torch.lib3d.rotations import geodesic_distance
     from happypose_tpu_torch.lib3d.transforms import apply_pose_noise, sample_pose_noise
     from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
@@ -107,23 +159,33 @@ def main(argv=None) -> int:
     from happypose_tpu_torch.utils.profiling import device_trace
     from happypose_tpu_torch.utils.random import generator_for
 
-    dev = torch.device(args.device)
-
     # ---- data ----
-    db = make_synth_mesh_db(args.synth_set, args.mesh_files, max_faces=args.max_faces)
+    if args.data == "synth":
+        db = make_synth_mesh_db(args.synth_set, args.mesh_files, max_faces=args.max_faces)
+        H, W = args.image_size
+        K1 = torch.tensor([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]], device=dev)
+
+        def synth_batch(epoch, i):
+            return make_synth_batch(assets, K1, sample_synth_scenes(
+                generator_for("synth", epoch, i, device=dev), n_objects=len(db.labels),
+                batch_size=args.batch_size, resolution=(H, W)))
+
+        def batches(epoch):
+            for i in range(args.epoch_size // args.batch_size):
+                yield synth_batch(epoch, i)
+    else:
+        data_it = iter(pose_ds)
+        next(data_it)  # the JAX package initializes its model on this batch: the same picks follow
+
+        def batches(epoch):
+            for _ in range(args.epoch_size // args.batch_size):
+                yield next(data_it)
+
+        def synth_batch(epoch, i):  # the in-training eval's held-out batch
+            return next(data_it)
+
     assets = db.render_assets(device=dev)
     bm = db.batched(n_points=256, device=dev)
-    H, W = args.image_size
-    K1 = torch.tensor([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]], device=dev)
-
-    def synth_batch(epoch, i):
-        return make_synth_batch(assets, K1, sample_synth_scenes(
-            generator_for("synth", epoch, i, device=dev), n_objects=len(db.labels),
-            batch_size=args.batch_size, resolution=(H, W)))
-
-    def batches(epoch):
-        for i in range(args.epoch_size // args.batch_size):
-            yield synth_batch(epoch, i)
 
     # ---- model ----
     cfg = PosePredictorConfig(

@@ -235,9 +235,19 @@ def test_scene_dataset_from_a_path_and_names_not_ported(tmp_path):
     _write(tbop, MeshDataBase, tmp_path)
     ds = tcfg.make_scene_dataset(str(tmp_path / "test"))
     assert len(ds) == 3 and not ds.load_depth
-    for name in ("webdataset.some/dir", "deepim.modelnet-airplane-test"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcfg.make_scene_dataset(name, data_dir=tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcfg.make_scene_dataset("deepim.modelnet-airplane-test", data_dir=tmp_path)
+    # a shard directory resolves as in JAX (`webdataset.<dir>`)
+    from happypose_tpu_torch.datasets.web_scene_dataset import (
+        WebSceneDataset,
+        write_scene_ds_as_wds,
+    )
+
+    write_scene_ds_as_wds([ds[i] for i in range(3)], tmp_path / "wds", shard_size=2)
+    wds = tcfg.make_scene_dataset(f"webdataset.{tmp_path / 'wds'}", data_dir=tmp_path)
+    ref = jcfg.make_scene_dataset(f"webdataset.{tmp_path / 'wds'}", data_dir=tmp_path)
+    assert isinstance(wds, WebSceneDataset) and len(wds) == len(ref) == 3
+    np.testing.assert_array_equal(wds[2].rgb, ds[2].rgb)
 
 
 @pytest.mark.parametrize("name", ["ycbv.cad", "ycbv", "meshdir", "explicit_path"])

@@ -15,9 +15,15 @@ import happypose_tpu_torch
 from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
 from happypose_tpu_torch.meshes.database import MeshDataBase
 from happypose_tpu_torch.ops import rasterizer_fused as rf
+from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
+from happypose_tpu_torch.datasets.scene_record import BatchedSceneRecorder
+from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDataset
 from happypose_tpu_torch.utils.load_model import load_detector, load_named_model
 
 ENTRY_POINTS = {
+    "BatchedSceneRecorder": BatchedSceneRecorder,
+    "PoseDataset": PoseDataset,
+    "StreamingPoseDataset": StreamingPoseDataset,
     "load_named_model": load_named_model,
     "load_detector": load_detector,
     "ObservationBatch.from_numpy": ObservationBatch.from_numpy,
@@ -49,6 +55,7 @@ FOLLOWERS = [
     "inference/icp_refiner.py", "inference/teaser_refiner.py", "evaluation/meters.py",
     "evaluation/bop19.py", "ops/roi_align.py", "ops/rasterizer.py", "ops/segment_ops.py",
     "lib3d/distances.py", "lib3d/rotations.py", "ops/scene_renderer.py",
+    "datasets/augmentations.py",
 ]
 CREATORS = {"arange", "eye", "full", "zeros", "ones", "rand", "randn", "tensor", "as_tensor",
             "empty", "linspace", "Generator"}
@@ -144,7 +151,8 @@ def test_runner_and_timer_default_to_the_card():
 
 
 CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example",
-        "run_pose_training", "eval_refiner_checkpoint", "eval_coarse_checkpoint"]
+        "run_pose_training", "eval_refiner_checkpoint", "eval_coarse_checkpoint",
+        "record_synthetic_dataset", "run_detector_training"]
 
 
 @pytest.mark.parametrize("script", CLIS)
@@ -156,7 +164,8 @@ def test_cli_device_defaults_to_the_card(script):
 
 @pytest.mark.parametrize("script", ["run_eval", "run_detection_eval", "run_inference_on_example",
                                     "run_pose_training", "eval_refiner_checkpoint",
-                                    "eval_coarse_checkpoint"])
+                                    "eval_coarse_checkpoint", "record_synthetic_dataset",
+                                    "run_detector_training", "run_pose_training_from_data"])
 def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
     """Without `--device cpu` a CLI asks PyTorch for the card: where there
     is none it fails with PyTorch's own error; it does not fall back. (Where
@@ -197,7 +206,14 @@ def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
         "eval_refiner_checkpoint": ["--run-dir", str(tmp_path / "refiner")],
         "eval_coarse_checkpoint": ["--coarse-dir", str(tmp_path / "coarse"), "--split-dir",
                                    str(tmp_path / "test"), "--models-dir", str(tmp_path / "models")],
+        "record_synthetic_dataset": ["--out-dir", str(tmp_path / "rec"), "--n-frames", "1"],
+        "run_detector_training": ["--run-dir", str(tmp_path / "det_run"), "--split-dir",
+                                  str(tmp_path / "test"), "--models-dir", str(tmp_path / "models")],
+        "run_pose_training_from_data": ["--run-dir", str(tmp_path / "run"), "--data",
+                                        str(tmp_path / "test"), "--models-dir",
+                                        str(tmp_path / "models")],
     }[script]
-    main = importlib.import_module(f"happypose_tpu_torch.scripts.{script}").main
+    module = script.replace("_from_data", "")
+    main = importlib.import_module(f"happypose_tpu_torch.scripts.{module}").main
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
         main(argv)

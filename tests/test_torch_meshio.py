@@ -12,6 +12,7 @@ are numpy on both sides: equal for the same seed.
 
 import io as _io
 import struct
+from pathlib import Path
 import zlib
 
 import numpy as np
@@ -242,9 +243,54 @@ PLY_VARIANTS = {
 }
 
 
+@pytest.fixture(scope="module")
+def jax_fastply(tmp_path_factory):
+    """The JAX package's own `fastply.cpp`, built here with g++ under a
+    temporary name and renamed, and bound with the JAX package's ctypes
+    signatures. The JAX package builds its decoder in place, next to the
+    source: under several test workers one worker can load a file another
+    is still writing, and JAX's `load_ply` then reads every binary file of
+    that worker with its Python parser (which returns the file's normals,
+    where the native path returns none). Tests that compare the two
+    packages pin JAX's decoder to this build instead."""
+    import ctypes
+    import os
+    import subprocess
+
+    import happypose_tpu.csrc as jcsrc
+
+    src = Path(jcsrc.__file__).parent / "fastply.cpp"
+    out = tmp_path_factory.mktemp("jax_fastply") / "libfastply.so"
+    tmp = out.with_suffix(".so.tmp")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(tmp)],
+                   check=True, capture_output=True, timeout=300)
+    os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.fastply_parse.restype = ctypes.c_void_p
+    lib.fastply_parse.argtypes = [ctypes.c_char_p]
+    lib.fastply_counts.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_long),
+                                   ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)]
+    lib.fastply_copy.argtypes = [ctypes.c_void_p, np.ctypeslib.ndpointer(np.float32),
+                                 np.ctypeslib.ndpointer(np.int32), ctypes.c_void_p]
+    lib.fastply_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _pin_jax_decoder(monkeypatch, lib):
+    """JAX's `load_ply` uses `lib` for binary files without uv (None: its
+    Python parser), whatever another test of this worker built or tried."""
+    import happypose_tpu.csrc as jcsrc
+
+    monkeypatch.setattr(jcsrc, "_LIB", lib)
+    monkeypatch.setattr(jcsrc, "_TRIED", True)
+
+
 @pytest.mark.parametrize("variant", sorted(PLY_VARIANTS))
 @pytest.mark.parametrize("fmt", ["ascii", "binary_little_endian", "binary_big_endian"])
-def test_load_ply_matches_jax(fmt, variant, tmp_path):
+def test_load_ply_matches_jax(fmt, variant, tmp_path, jax_fastply, monkeypatch):
+    """Both packages with their native decoders (JAX's pinned, see
+    `jax_fastply`): the same mesh, field by field."""
+    _pin_jax_decoder(monkeypatch, jax_fastply)
     rs = np.random.RandomState(3)
     m = _sample_mesh(rs)
     kw = PLY_VARIANTS[variant]
@@ -269,6 +315,19 @@ def test_load_ply_matches_jax(fmt, variant, tmp_path):
     assert_meshes_equal(slow, ours, ("vertices", "faces", "vertex_colors", "vertex_uv", "texture"))
     if kw.get("normals"):
         np.testing.assert_array_equal(slow.vertex_normals_, m["normals"])
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary_little_endian", "binary_big_endian"])
+def test_python_ply_parsers_match_jax(fmt, tmp_path, monkeypatch):
+    """JAX's native path pinned off against the port's `load_ply(path,
+    native=False)`: the Python parsers alone, normals included."""
+    _pin_jax_decoder(monkeypatch, None)
+    m = _sample_mesh(np.random.RandomState(5))
+    path = tmp_path / "p.ply"
+    _write_ply(path, fmt, m, colors=True, normals=True)
+    ours, ref = tio.load_ply(path, native=False), jio.load_ply(path)
+    assert_meshes_equal(ours, ref)
+    np.testing.assert_array_equal(ours.vertex_normals_, m["normals"])
 
 
 def test_both_ply_parsers_agree_on_a_binary_file(tmp_path):

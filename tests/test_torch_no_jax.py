@@ -34,7 +34,11 @@ def test_port_imports_no_jax():
                  "training.synth_data", "training.trainer", "utils.checkpoint",
                  "utils.profiling", "utils.random", "scripts.run_pose_training",
                  "scripts.eval_refiner_checkpoint", "scripts.eval_coarse_checkpoint",
-                 "scripts.plot_training_log", "scripts.supervise"):
+                 "scripts.plot_training_log", "scripts.supervise", "utils.prefetch",
+                 "datasets.pose_dataset", "datasets.scene_synth", "datasets.scene_record",
+                 "datasets.web_scene_dataset", "datasets.streaming_pose_dataset",
+                 "training.detector_loss", "scripts.record_synthetic_dataset",
+                 "scripts.run_detector_training"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
