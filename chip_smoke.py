@@ -159,6 +159,30 @@ Phases (any failure raises, so the exit code is nonzero):
    `run_detector_training` writes a run directory and `run_eval --model
    cosypose-RGB --detections detector` reads it on 2 frames of the split:
    every pose finite, launches as the config implies.
+30. Multi-view reconstruction: `run_multiview_eval --synthesize --n-views
+   4` (3 objects at 240x320; 4 x (1 + 3) launches) with the dense solver,
+   then `--ba-solver schur` on the written scene (no launch), then
+   `--device cpu`: component ids equal, summary within `MV_SUMMARY_RTOL`;
+   warm s/scene split into matching and BA for each solver, and one scene
+   under `torch.profiler` (device kernels, idle share). Every shape a
+   multiview path launches at that phase 3 does not hold is held to the
+   plain version here (phases 30-32).
+31. Candidates from the single-view pipeline: `run_multiview_eval
+   --checkpoints` on phase 24's run directories, and `_pipeline_candidates`
+   with a seeded `cosypose-RGB` at full width on the 4 views: launches as
+   the configs imply, finite poses; whether a scene is reconstructed from
+   seeded weights is logged.
+32. `run_multiview_eval --record-dr 2 --n-views 4`: 2 launches a recorder
+   batch.
+33. `run_custom_scenario` at its defaults (200 RANSAC iterations, 256
+   points, 64 symmetry slots, 10 BA iterations) on a scenario from phase
+   30's scene (the sphere declared symmetric) and on a T-LESS-sized one (8
+   views x 15 objects, 5 of each model): seconds and peak memory.
+34. Bundle adjustment of the 8 x 15 scene, dense and Schur, 50 iterations:
+   s/solve, s/LM step, accepted steps, the solvers' losses (Schur below
+   max(2 x dense, 1)); one LM step on the card against the CPU (poses
+   within `BA_STEP_ATOL` at lambda `BA_STEP_LAMBDA`) and the Schur blocks
+   (within `BA_BLOCKS_REL` of their largest entry).
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -2302,6 +2326,505 @@ def phase_training_clis(dev, root: Path, split: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------- multiview
+
+MV_VIEWS = 4  # `run_multiview_eval --synthesize`: 4 views of 3 objects at 240x320
+MV_OBJECTS = 3
+MV_SUMMARY_RTOL = 1e-3  # the CLI's summary, card against CPU
+MV_REPEATS = 3  # warm `predict_scene_state` calls timed
+BA_VIEWS, BA_OBJECTS = 8, 15  # the larger BA: a T-LESS-sized scene, every object in every view
+BA_ITERATIONS = 50
+BA_STEP_LAMBDA = 1e4  # one LM step card vs CPU where its system is well conditioned
+BA_STEP_ATOL = 1e-4  # poses after that step, card against CPU
+BA_BLOCKS_REL = 1e-4  # Schur blocks card vs CPU, of the largest entry (index_add order)
+#   Below lambda ~1e2 the step is float32 noise along the ortho6d null directions in both
+#   packages and on both devices alike (tests/test_torch_multiview.py measures 0.92 in pose
+#   at lambda 1e-3 between JAX and the port): such steps are only logged.
+
+
+class _MultiviewProbe:
+    """While active, times each `multiview_candidate_matching` call and
+    each `MultiviewRefinement.solve` (host clock around synchronized work)
+    and keeps the matches and the predictor's calls, so that a CLI run can
+    be split into matching and BA and its scene replayed."""
+
+    def __init__(self):
+        self.match_s, self.ba_s, self.matches, self.calls, self.solves = [], [], [], [], []
+
+    def __enter__(self):
+        from happypose_tpu_torch.multiview import scene_predictor as sp
+        from happypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
+
+        self._saved = (sp.multiview_candidate_matching, MultiviewRefinement.solve,
+                       sp.MultiviewScenePredictor.predict_scene_state)
+        match, solve, predict = self._saved
+
+        def timed_match(*a, **k):
+            out, t = _timed(lambda: match(*a, **k))
+            self.match_s.append(t)
+            self.matches.append(out)
+            return out
+
+        def timed_solve(refiner, *a, **k):
+            out, t = _timed(lambda: solve(refiner, *a, **k))
+            self.ba_s.append(t)
+            self.solves.append(out)
+            return out
+
+        def recorded_predict(predictor, *a, **k):
+            self.calls.append((predictor, a, k))
+            return predict(predictor, *a, **k)
+
+        sp.multiview_candidate_matching = timed_match
+        MultiviewRefinement.solve = timed_solve
+        sp.MultiviewScenePredictor.predict_scene_state = recorded_predict
+        return self
+
+    def __exit__(self, *exc):
+        from happypose_tpu_torch.multiview import scene_predictor as sp
+        from happypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
+
+        (sp.multiview_candidate_matching, MultiviewRefinement.solve,
+         sp.MultiviewScenePredictor.predict_scene_state) = self._saved
+
+
+class _KernelInputs:
+    """While active, keeps the inputs of the first `raster_fused` call at
+    each (batch, resolution), so that a path's shapes can be held to the
+    plain version after its launches are counted."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+        self._launch = launch = rf.raster_fused
+
+        def recording(A, chunk_bbox, resolution, *a, **k):
+            self.seen.setdefault((A.shape[0], tuple(resolution)), (A, chunk_bbox, tuple(resolution)))
+            return launch(A, chunk_bbox, resolution, *a, **k)
+
+        rf.raster_fused = recording
+        return self
+
+    def __exit__(self, *exc):
+        from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+        rf.raster_fused = self._launch
+
+
+# (batch, resolution) of the shapes phase 3 holds
+HELD_SHAPES = frozenset({(B, tuple(res)) for _, B, res, _, _ in KERNEL_SHAPES} | {
+    (TRAIN_BATCH["refiner"], FRAME_RES), (TRAIN_BATCH["coarse"] * GRID_HYPOTHESES, RES),
+    # the recorder's slots: 4 objects and the floor a scene
+    (RECORD_BATCH * 5, FRAME_RES), (RECORD_BATCH * 5, (RECORD_SHADOW, RECORD_SHADOW))})
+
+
+def _check_new_shapes(path: str, inputs: "_KernelInputs", kernel: dict) -> None:
+    """Hold each shape a multiview path launched at, and phase 3 does not
+    hold, to the plain version: lists, output, time beside the bound."""
+    held = kernel.setdefault("held", set(HELD_SHAPES))
+    for (B, res), (A, bbox, _) in sorted(inputs.seen.items()):
+        if (B, res) in held:
+            continue
+        name = f"{path}_B{B}_{res[0]}x{res[1]}"
+        kernel["shapes"][name], err = _check_shape(name, A, bbox, res, min_hit=0.0005)
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+        held.add((B, res))
+
+
+def _device_share(fn) -> str:
+    """One call of `fn` under `torch.profiler`: its device kernels and
+    copies, their time, the call's wall time and the device's idle share.
+    The device's activity only: reading back a scene's ~100,000 host
+    operators as well takes the profiler tens of seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(fn)
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in device) / 1e6
+    return (f"{sum(e.count for e in device)} device kernels and copies, {busy * 1e3:.2f} ms on "
+            f"the device of {wall * 1e3:.1f} ms (idle {1 - busy / wall:.3f})")
+
+
+def _scene_split(probe: _MultiviewProbe, solver: str) -> dict:
+    """Replay the probe's first scene MV_REPEATS times, warm: s/scene of
+    matching and of BA, then one scene under the profiler."""
+    predictor, a, k = probe.calls[0]
+    replay = _MultiviewProbe()
+    with replay:
+        totals = [_timed(lambda: predictor.predict_scene_state(*a, **k))[1]
+                  for _ in range(MV_REPEATS)]
+    prof = _device_share(lambda: predictor.predict_scene_state(*a, **k))
+    fig = {"s_per_scene": totals, "match_s": replay.match_s[:MV_REPEATS],
+           "ba_s": replay.ba_s[:MV_REPEATS]}
+    log(f"multiview {solver}: warm s/scene {_fmt(totals)}; matching {_fmt(fig['match_s'])}; "
+        f"BA ({predictor.ba_n_iterations} iterations) {_fmt(fig['ba_s'])}; one scene: {prof}")
+    return fig
+
+
+def phase_multiview_synthesize(dev, root: Path, kernel: dict) -> dict:
+    """`run_multiview_eval --synthesize --n-views 4` on the card (dense BA),
+    then `--ba-solver schur` on the written scene, then `--device cpu`."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_multiview_eval as mv
+
+    scene = root / "multiview"
+    runs = {}
+    for name, argv in (("dense", ["--synthesize", "--n-views", str(MV_VIEWS)]),
+                       ("schur", ["--ba-solver", "schur"]),
+                       ("cpu", ["--device", "cpu"])):
+        out = root / f"multiview_{name}"
+        device = ["--device", str(dev)] if name != "cpu" else []
+        inputs = _KernelInputs()
+        with _MultiviewProbe() as probe, inputs:
+            rf.launches = 0
+            rc, t = _timed(lambda: mv.main(
+                ["--out-dir", str(scene if name == "dense" else out), "--models-dir",
+                 str(scene / "models"), "--scenes-dir", str(scene / "scenes")] + argv + device))
+            launches = rf.launches
+        summary = json.loads(((scene if name == "dense" else out) / "multiview_summary.json").read_text())
+        expected = MV_VIEWS * (1 + MV_OBJECTS) if name == "dense" else 0
+        runs[name] = dict(probe=probe, summary=summary, launches=launches, s=t)
+        log(f"run_multiview_eval {' '.join(argv)} ({name}): {t:.2f} s, launches {launches} "
+            f"(expected {expected}), matching {probe.match_s[0]:.4f} s, BA {probe.ba_s[0]:.4f} s; "
+            f"summary {json.dumps(summary)}")
+        assert rc == 0 and launches == expected and summary["n_scenes"] == 1
+        assert math.isfinite(summary["ba_loss_mean"]) and all(
+            math.isfinite(s["loss"]) for s in probe.solves)
+        if name == "dense":
+            _check_new_shapes("multiview_synthesize", inputs, kernel)
+    cuda, cpu = runs["dense"], runs["cpu"]
+    np.testing.assert_array_equal(cuda["probe"].matches[0]["component_ids"],
+                                  cpu["probe"].matches[0]["component_ids"])
+    for k, v in cuda["summary"].items():
+        if k == "candidates":
+            assert v == cpu["summary"][k]
+        else:
+            np.testing.assert_allclose(v, cpu["summary"][k], rtol=MV_SUMMARY_RTOL, atol=1e-6,
+                                       err_msg=k)
+    log(f"run_multiview_eval card vs cpu: component ids equal "
+        f"{cuda['probe'].matches[0]['component_ids'].tolist()}, summary within "
+        f"{MV_SUMMARY_RTOL} relative")
+    figures = {solver: _scene_split(runs[solver]["probe"], solver) for solver in ("dense", "schur")}
+    return {"scene": scene, "figures": figures, "launches": {
+        f"run_multiview_eval --synthesize ({MV_VIEWS} views, dense)": cuda["launches"],
+        "run_multiview_eval --ba-solver schur (the written scene)": runs["schur"]["launches"]}}
+
+
+def _scene_observations(scene: Path):
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
+
+    ds = BOPSceneDataset(scene / "scenes")
+    return BOPObjectDataset(scene / "models").mesh_db, [ds[i] for i in range(len(ds))]
+
+
+def phase_multiview_pipeline(dev, root: Path, scene: Path, kernel: dict) -> dict:
+    """Candidates from the single-view pipeline: `run_multiview_eval
+    --checkpoints` on phase 24's run directories (ResNet34, 240x320, 5
+    refiner iterations) and `_pipeline_candidates` with a seeded
+    `cosypose-RGB` at full width, on the 4 views. Launches as the configs
+    imply, finite poses; whether the seeded weights' candidates give a
+    scene is logged, not asserted."""
+    from happypose_tpu_torch.multiview import MultiviewCandidates
+    from happypose_tpu_torch.multiview.scene_predictor import MultiviewScenePredictor
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_multiview_eval as mv
+    from happypose_tpu_torch.utils.load_model import (
+        NAMED_MODELS, load_named_model, spec_from_checkpoints)
+
+    db, obs = _scene_observations(scene)
+    n_per_view = [len(o.obj_labels) for o in obs]
+    launches = {}
+    runs = root / "train_runs"
+    icfg = dataclasses.replace(spec_from_checkpoints(
+        {"refiner": runs / "refiner", "coarse": runs / "coarse"}).inference_cfg,
+        n_refiner_iterations=5)
+    candidates = []
+    pipeline = mv._pipeline_candidates
+    mv._pipeline_candidates = lambda *a: candidates.append(pipeline(*a)) or candidates[-1]
+    inputs = _KernelInputs()
+    try:
+        with _MultiviewProbe() as probe, inputs:
+            rf.launches = 0
+            rc, t = _timed(lambda: mv.main([
+                "--out-dir", str(root / "multiview_checkpoints"), "--models-dir",
+                str(scene / "models"), "--scenes-dir", str(scene / "scenes"), "--checkpoints",
+                str(runs), "--device", str(dev)]))
+            n = rf.launches
+    finally:
+        mv._pipeline_candidates = pipeline
+    expected = sum(_frame_launches(icfg, D, icfg.SO3_grid_size) for D in n_per_view)
+    launches[f"run_multiview_eval --checkpoints ({MV_VIEWS} views)"] = n
+    (preds,) = candidates
+    log(f"run_multiview_eval --checkpoints (phase 24's runs): {t:.2f} s, launches {n} (expected "
+        f"{expected}), {sum(len(r['poses']) for r in preds.values())} candidates; scene "
+        f"reconstructed: {rc == 0} (rc {rc}; BA loss "
+        f"{[s['loss'] for s in probe.solves]})")
+    assert rc in (0, 1) and n == expected and len(preds) == MV_VIEWS
+    assert all(np.isfinite(r["poses"]).all() and len(r["poses"]) == D
+               for r, D in zip(preds.values(), n_per_view))
+    _check_new_shapes("multiview_checkpoints", inputs, kernel)
+
+    est = load_named_model("cosypose-RGB", db, device=dev)
+    cfg = NAMED_MODELS["cosypose-RGB"].inference_cfg
+    inputs = _KernelInputs()
+    with inputs:
+        rf.launches = 0
+        preds, t = _timed(lambda: mv._pipeline_candidates(obs, est, db, dev))
+        n = rf.launches
+    expected = sum(_frame_launches(cfg, D) for D in n_per_view)
+    launches[f"_pipeline_candidates cosypose-RGB ({MV_VIEWS} views)"] = n
+    assert n == expected and all(np.isfinite(r["poses"]).all() for r in preds.values())
+    poses = [p for v in sorted(preds) for p in preds[v]["poses"]]
+    cands = MultiviewCandidates(
+        poses=np.asarray(poses, np.float32),
+        view_ids=np.concatenate([np.full(len(preds[v]["poses"]), i) for i, v in enumerate(sorted(preds))]),
+        obj_ids=np.concatenate([preds[v]["obj_ids"] for v in sorted(preds)]),
+        scores=np.ones(len(poses), np.float32))
+    state = MultiviewScenePredictor(
+        db.batched(n_points=128, device=dev), score_th=0.0, n_ransac_iter=30, n_min_inliers=2,
+        device=dev).predict_scene_state(cands, np.stack([o.K for o in obs]))
+    log(f"_pipeline_candidates cosypose-RGB (seeded, full width): {t:.2f} s for {MV_VIEWS} "
+        f"views, launches {n} (expected {expected}), {len(poses)} candidates; scene "
+        f"reconstructed: {state is not None}"
+        + (f" ({len(state.obj_ids)} objects, BA loss {state.ba_loss:.4g})" if state else ""))
+    _check_new_shapes("multiview_cosypose", inputs, kernel)
+    return launches
+
+
+def phase_multiview_record_dr(dev, root: Path, scene: Path, kernel: dict) -> dict:
+    """`run_multiview_eval --record-dr 2 --n-views 4` with the synthesized
+    scene's models: 2 launches a recorder batch."""
+    from happypose_tpu_torch.datasets.scene_record import BatchedSceneRecorder
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_multiview_eval as mv
+
+    out = root / "multiview_dr"
+    batches = []
+    record_batch = BatchedSceneRecorder.record_batch
+    BatchedSceneRecorder.record_batch = lambda self, *a: batches.append(1) or record_batch(self, *a)
+    inputs = _KernelInputs()
+    try:
+        with _MultiviewProbe() as probe, inputs:
+            rf.launches = 0
+            rc, t = _timed(lambda: mv.main([
+                "--out-dir", str(out), "--record-dr", "2", "--n-views", str(MV_VIEWS),
+                "--models-dir", str(scene / "models"), "--device", str(dev)]))
+            n = rf.launches
+    finally:
+        BatchedSceneRecorder.record_batch = record_batch
+    n_written = len([d for d in (out / "scenes").iterdir() if d.is_dir()])
+    summary = (json.loads((out / "multiview_summary.json").read_text())
+               if (out / "multiview_summary.json").exists() else None)
+    log(f"run_multiview_eval --record-dr 2 --n-views {MV_VIEWS}: {t:.2f} s, launches {n} in "
+        f"{len(batches)} recorder batches (2 a batch), {n_written} scenes written; matching "
+        f"{_fmt(probe.match_s) if probe.match_s else '-'} s, BA "
+        f"{_fmt(probe.ba_s) if probe.ba_s else '-'} s; rc {rc}, summary {json.dumps(summary)}")
+    assert n == 2 * len(batches) and len(batches) >= 1 and n_written == 2 and rc in (0, 1)
+    _check_new_shapes("multiview_record_dr", inputs, kernel)
+    return {f"run_multiview_eval --record-dr 2 ({len(batches)} batches)": n}
+
+
+def _mv_models(models: Path, src: Path) -> None:
+    """The synthesized scene's models, the sphere declared symmetric about z."""
+    import shutil
+
+    shutil.copytree(src, models)
+    info = json.loads((models / "models_info.json").read_text())
+    info["1"]["symmetries_continuous"] = [{"axis": [0, 0, 1], "offset": [0, 0, 0]}]
+    (models / "models_info.json").write_text(json.dumps(info))
+
+
+def _large_scene(n_views=BA_VIEWS, n_objects=BA_OBJECTS, seed=0):
+    """A T-LESS-sized scene: n_objects on a 5 x 3 grid (object o of model o
+    % 3: the sphere and the two boxes of the synthesized scene), n_views
+    cameras on an arc 0.7 m from the origin looking at it, every object in
+    every view as ground truth + noise (0.01 rad, 2 mm; as
+    tests/test_ba_schur.py)."""
+    from scipy.spatial.transform import Rotation as ScipyRot
+
+    from happypose_tpu_torch.lib3d.multiview_geom import look_at_R
+
+    rng = np.random.RandomState(seed)
+    TWO = np.tile(np.eye(4), (n_objects, 1, 1))
+    TWO[:, :3, :3] = ScipyRot.random(n_objects, random_state=seed + 1).as_matrix()
+    gx, gz = np.meshgrid(np.linspace(-0.2, 0.2, 5), np.linspace(-0.1, 0.1, 3))
+    TWO[:, 0, 3], TWO[:, 2, 3] = gx.ravel()[:n_objects], gz.ravel()[:n_objects]
+    TWO[:, :3, 3] += rng.uniform(-0.01, 0.01, (n_objects, 3))
+    TWC = np.tile(np.eye(4), (n_views, 1, 1))
+    for v in range(n_views):
+        ang = 1.2 * (v / max(n_views - 1, 1) - 0.5)
+        pos = np.asarray([0.7 * np.sin(ang), -0.2, -0.7 * np.cos(ang)])
+        TWC[v, :3, :3] = look_at_R(torch.from_numpy(pos)[None], torch.zeros(1, 3, dtype=torch.float64),
+                                   torch.tensor([[0.0, -1.0, 0.0]], dtype=torch.float64)).numpy()[0]
+        TWC[v, :3, 3] = pos
+    K = np.tile(np.asarray([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]], np.float32), (n_views, 1, 1))
+    poses, views, objs = [], [], []
+    for v in range(n_views):
+        for o in range(n_objects):
+            noise = np.eye(4)
+            noise[:3, :3] = ScipyRot.from_rotvec(rng.normal(0, 0.01, 3)).as_matrix()
+            noise[:3, 3] = rng.normal(0, 0.002, 3)
+            poses.append(np.linalg.inv(TWC[v]) @ TWO[o] @ noise)
+            views.append(v)
+            objs.append(o)
+    return dict(TWO=TWO, TWC=TWC, K=K, poses=np.asarray(poses, np.float32),
+                view_ids=np.asarray(views), obj_idx=np.asarray(objs),
+                obj_ids=np.asarray(objs) % 3)
+
+
+def _write_scenario(out: Path, models_src: Path, poses, view_ids, obj_ids, K) -> Path:
+    """A scenario directory of `run_custom_scenario`: candidates (scores
+    0.9, one outlier of score 0.1 that `--sv-score-th` drops), cameras."""
+    from happypose_tpu_torch.evaluation.bop_export import save_bop_csv
+
+    _mv_models(out / "models", models_src)
+    T_bad = np.eye(4, dtype=np.float32)
+    T_bad[:3, 3] = [0.5, 0.5, 2.0]
+    save_bop_csv(out / "candidates.csv", np.concatenate([poses, T_bad[None]]),
+                 np.append(obj_ids, obj_ids[0]), np.zeros(len(poses) + 1, int),
+                 np.append(view_ids, view_ids[0]), np.append(np.full(len(poses), 0.9), 0.1))
+    (out / "scene_camera.json").write_text(json.dumps(
+        {str(v): {"cam_K": K[i].reshape(-1).tolist()} for i, v in enumerate(np.unique(view_ids))}))
+    return out
+
+
+def phase_custom_scenario(dev, root: Path, scene: Path) -> dict:
+    """`run_custom_scenario` at its defaults (200 RANSAC iterations, 256
+    points, 64 symmetry slots, 10 BA iterations, NMS at 4 cm) on the card:
+    on a scenario from the synthesized scene (its ground truth + noise) and
+    on the T-LESS-sized scene (8 views x 15 objects, 5 of each model: 64
+    tentative matches a view pair, so 200 hypotheses x 64 slots x 256
+    points). Seconds and peak memory of each."""
+    from scipy.spatial.transform import Rotation as ScipyRot
+
+    from happypose_tpu_torch.evaluation.bop_export import load_bop_csv
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_custom_scenario
+
+    db, obs = _scene_observations(scene)
+    rng = np.random.RandomState(2)
+    poses, views, objs = [], [], []
+    for v, o in enumerate(obs):
+        for label, T in zip(o.obj_labels, o.TWO):
+            noise = np.eye(4)
+            noise[:3, :3] = ScipyRot.from_rotvec(rng.normal(0, 0.01, 3)).as_matrix()
+            noise[:3, 3] = rng.normal(0, 0.002, 3)
+            poses.append(T @ noise)
+            views.append(v * 10)
+            objs.append(int(label.split("_")[1]))
+    big = _large_scene()
+    scenarios = {
+        "synthesized scene": (_write_scenario(root / "scenario_mv", scene / "models",
+                                              np.asarray(poses, np.float32), np.asarray(views),
+                                              np.asarray(objs), np.stack([o.K for o in obs])),
+                              len(set(objs))),
+        f"{BA_VIEWS} views x {BA_OBJECTS} objects": (
+            _write_scenario(root / "scenario_large", scene / "models", big["poses"],
+                            big["view_ids"], big["obj_ids"] + 1, big["K"]), BA_OBJECTS),
+    }
+    figures = {}
+    for name, (path, n_obj) in scenarios.items():
+        with _MultiviewProbe() as probe:
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30  # held by earlier phases
+            rf.launches = 0
+            rc, t = _timed(lambda: run_custom_scenario.main(["--scenario", str(path), "--device",
+                                                             str(dev)]))
+            peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+        out = json.loads((path / "results" / "scene.json").read_text())
+        rows = load_bop_csv(path / "results" / "poses.csv")
+        figures[name] = {"s": t, "match_s": probe.match_s[0], "ba_s": probe.ba_s[0],
+                         "peak_gib": peak, "launches": rf.launches}
+        log(f"run_custom_scenario ({name}, defaults): {t:.2f} s (matching {probe.match_s[0]:.3f}, "
+            f"BA {probe.ba_s[0]:.3f}), peak memory {peak:.2f} GiB above the {resident:.2f} GiB "
+            f"resident before; {len(out['objects'])} objects "
+            f"(of {n_obj}) in {len(out['cameras'])} views, {len(rows['poses'])} pose rows")
+        assert rc == 0 and 1 <= len(out["objects"]) <= n_obj and rf.launches == 0
+        assert np.isfinite(rows["poses"]).all()
+        assert all(np.isfinite(o["TWO"]).all() for o in out["objects"])
+    return figures
+
+
+def _ba_refiner(big, meshes, solver, dev):
+    from happypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
+
+    return MultiviewRefinement(
+        cand_TCO=big["poses"], cand_view_idx=big["view_ids"], cand_obj_idx=big["obj_idx"],
+        cand_obj_ids=big["obj_ids"], K=big["K"], meshes=meshes, n_points=8, solver=solver,
+        device=dev)
+
+
+def phase_large_ba(dev, scene: Path) -> dict:
+    """Dense and Schur BA of the 8 x 15 scene, 50 iterations from the chain
+    of exact relative cameras (as `test_solvers_agree_end_to_end`): s/solve,
+    s/LM step, accepted steps, the two solvers' losses; one LM step and the
+    Schur blocks on the card against the CPU."""
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset
+    from happypose_tpu_torch.lib3d.transforms import T_to_pose9d, pose9d_to_T
+
+    big = _large_scene()
+    models = BOPObjectDataset(scene / "models").mesh_db.batched(n_points=64, device=dev)
+    TWC = big["TWC"]
+    pairs = [(v, v + 1) for v in range(BA_VIEWS - 1)]
+    TC1C2 = np.stack([np.linalg.inv(TWC[a]) @ TWC[b] for a, b in pairs]).astype(np.float32)
+    figures, results = {}, {}
+    for solver in ("dense", "schur"):
+        ref = _ba_refiner(big, models, solver, dev)
+        losses = []
+        loss = ref._loss
+        ref._loss = lambda *a: losses.append(float(loss(*a))) or torch.tensor(losses[-1])
+        ref.solve(pairs, TC1C2, n_iterations=2)  # warm-up
+        losses.clear()
+        results[solver], t = _timed(lambda: ref.solve(pairs, TC1C2, n_iterations=BA_ITERATIONS))
+        del ref._loss
+        accepted = sum(1 for i in range(1, len(losses)) if losses[i] < min(losses[:i]))
+        step = ref._lm_step if solver == "dense" else ref._lm_step_schur
+        TCW = torch.as_tensor(np.linalg.inv(TWC), dtype=torch.float32, device=dev)
+        TWO = torch.as_tensor(big["TWO"], dtype=torch.float32, device=dev)
+        params = torch.cat([T_to_pose9d(TWO).reshape(-1), T_to_pose9d(TCW).reshape(-1)])
+        target = ref._align_targets(*ref._split(params))
+        step_s = [_timed(lambda: step(params, target, 1e-3, 25.0))[1] for _ in range(10)]
+        prof = _device_share(lambda: step(params, target, 1e-3, 25.0))
+        figures[solver] = {"s_per_solve": t, "s_per_step": statistics.median(step_s),
+                           "accepted_steps": accepted, "loss": results[solver]["loss"]}
+        log(f"BA {solver} {BA_VIEWS} views x {BA_OBJECTS} objects ({len(big['poses'])} candidates, "
+            f"8 points): {BA_ITERATIONS} iterations {t:.3f} s, loss {losses[0]:.4f} -> "
+            f"{results[solver]['loss']:.4f}, {accepted} of {BA_ITERATIONS} steps accepted; "
+            f"s/LM step {_fmt(step_s)}; one step: {prof}")
+        assert math.isfinite(results[solver]["loss"])
+        assert np.isfinite(results[solver]["TWO"]).all() and np.isfinite(results[solver]["TWC"]).all()
+
+        # one step on the card against the CPU, from the same parameters and targets
+        cpu = _ba_refiner(big, models.to("cpu"), solver, "cpu")
+        cpu_step = cpu._lm_step if solver == "dense" else cpu._lm_step_schur
+        for lambd in (1e-3, BA_STEP_LAMBDA):
+            p_card, l_card = step(params, target, lambd, 25.0)
+            p_cpu, l_cpu = cpu_step(params.cpu(), target.cpu(), lambd, 25.0)
+            d_pose = (pose9d_to_T(p_card.reshape(-1, 9)).cpu() -
+                      pose9d_to_T(p_cpu.reshape(-1, 9))).abs().max().item()
+            d_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+            log(f"BA {solver} one LM step at lambda {lambd:g}, card vs cpu: poses max diff "
+                f"{d_pose:.3g}, loss rel diff {d_loss:.3g}")
+            assert d_loss <= 1e-5
+            if lambd == BA_STEP_LAMBDA:
+                assert d_pose <= BA_STEP_ATOL, d_pose
+        if solver == "schur":
+            card = ref._cand_blocks(params, target, 25.0)
+            host = cpu._cand_blocks(params.cpu(), target.cpu(), 25.0)
+            rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(card, host))
+            log(f"BA Schur blocks card vs cpu: max diff {rel:.3g} of the largest entry")
+            assert rel <= BA_BLOCKS_REL
+    r_d, r_s = results["dense"]["loss"], results["schur"]["loss"]
+    log(f"BA dense vs schur at {BA_VIEWS} x {BA_OBJECTS}: loss {r_d:.4f} vs {r_s:.4f}")
+    assert r_s < max(2.0 * r_d, 1.0), (r_d, r_s)
+    return figures
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -2351,6 +2874,24 @@ def main() -> None:
             "recorder": recorder, "record_cli": {k: split[k] for k in (
                 "frames_per_s", "bop_read_fps", "wds_read_fps")},
             "refiner_from_disk": disk["figures"], "detector": detector}))
+        seconds = {}
+
+        def timed_phase(n, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            seconds[n] = round(time.perf_counter() - t0, 1)
+            return out
+
+        mv = timed_phase(30, phase_multiview_synthesize, dev, root, kernel)
+        launches.update(mv["launches"])
+        launches.update(timed_phase(31, phase_multiview_pipeline, dev, root, mv["scene"], kernel))
+        launches.update(timed_phase(32, phase_multiview_record_dr, dev, root, mv["scene"], kernel))
+        custom = timed_phase(33, phase_custom_scenario, dev, root, mv["scene"])
+        launches["run_custom_scenario (2 scenarios)"] = sum(f["launches"] for f in custom.values())
+        ba = timed_phase(34, phase_large_ba, dev, mv["scene"])
+        log(f"multiview phases 30-34: {sum(seconds.values()):.1f} s (by phase {seconds}); "
+            "figures: " + json.dumps({"scene": mv["figures"], "custom_scenario": custom,
+                                      "large_ba": ba}))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",

@@ -7,6 +7,20 @@ from typing import Tuple
 import torch
 
 
+def project_points(
+    points_3d: torch.Tensor, K: torch.Tensor, TCO: torch.Tensor
+) -> torch.Tensor:
+    """Project object-frame points [B, P, 3] through TCO [B, 4, 4] and K
+    [B, 3, 3] -> uv [B, P, 2]. Depth is not clamped: bundle adjustment
+    differentiates through the division by z."""
+    cam_pts = (
+        torch.einsum("bij,bpj->bpi", TCO[:, :3, :3], points_3d)
+        + TCO[:, None, :3, 3]
+    )
+    suv = torch.einsum("bij,bpj->bpi", K, cam_pts)
+    return suv[..., :2] / suv[..., 2:3]
+
+
 def project_points_robust(
     points_3d: torch.Tensor, K: torch.Tensor, TCO: torch.Tensor, z_min: float = 0.1
 ) -> torch.Tensor:

@@ -18,6 +18,8 @@ from happypose_tpu_torch.ops import rasterizer_fused as rf
 from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
 from happypose_tpu_torch.datasets.scene_record import BatchedSceneRecorder
 from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDataset
+from happypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
+from happypose_tpu_torch.multiview.scene_predictor import MultiviewScenePredictor
 from happypose_tpu_torch.utils.load_model import load_detector, load_named_model
 
 ENTRY_POINTS = {
@@ -30,6 +32,8 @@ ENTRY_POINTS = {
     "DetectionBatch.from_numpy": DetectionBatch.from_numpy,
     "MeshDataBase.batched": MeshDataBase.batched,
     "MeshDataBase.render_assets": MeshDataBase.render_assets,
+    "MultiviewScenePredictor": MultiviewScenePredictor,
+    "MultiviewRefinement": MultiviewRefinement,
 }
 
 
@@ -55,7 +59,7 @@ FOLLOWERS = [
     "inference/icp_refiner.py", "inference/teaser_refiner.py", "evaluation/meters.py",
     "evaluation/bop19.py", "ops/roi_align.py", "ops/rasterizer.py", "ops/segment_ops.py",
     "lib3d/distances.py", "lib3d/rotations.py", "ops/scene_renderer.py",
-    "datasets/augmentations.py",
+    "datasets/augmentations.py", "multiview/ransac.py",
 ]
 CREATORS = {"arange", "eye", "full", "zeros", "ones", "rand", "randn", "tensor", "as_tensor",
             "empty", "linspace", "Generator"}
@@ -142,6 +146,25 @@ def test_bench_variant_applies_to_the_kernel_source(step):
     assert bench_raster.variant_source(step) != source
 
 
+def test_multiview_fails_where_there_is_no_card():
+    """The scene predictor places its meshes on its device and bundle
+    adjustment its tensors: by default the card, and where there is none
+    PyTorch's own error."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    import numpy as np
+
+    from happypose_tpu_torch.meshes.io import make_box_mesh
+
+    meshes = MeshDataBase({"box": make_box_mesh()}).batched(n_points=8, device="cpu")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        MultiviewScenePredictor(meshes)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        MultiviewRefinement(cand_TCO=np.eye(4)[None], cand_view_idx=np.zeros(1, int),
+                            cand_obj_idx=np.zeros(1, int), cand_obj_ids=np.zeros(1, int),
+                            K=np.eye(3)[None], meshes=meshes)
+
+
 def test_runner_and_timer_default_to_the_card():
     from happypose_tpu_torch.evaluation.prediction_runner import PredictionRunner
     from happypose_tpu_torch.utils.timer import DeviceTimer
@@ -152,7 +175,8 @@ def test_runner_and_timer_default_to_the_card():
 
 CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example",
         "run_pose_training", "eval_refiner_checkpoint", "eval_coarse_checkpoint",
-        "record_synthetic_dataset", "run_detector_training"]
+        "record_synthetic_dataset", "run_detector_training", "run_multiview_eval",
+        "run_custom_scenario"]
 
 
 @pytest.mark.parametrize("script", CLIS)
@@ -165,7 +189,8 @@ def test_cli_device_defaults_to_the_card(script):
 @pytest.mark.parametrize("script", ["run_eval", "run_detection_eval", "run_inference_on_example",
                                     "run_pose_training", "eval_refiner_checkpoint",
                                     "eval_coarse_checkpoint", "record_synthetic_dataset",
-                                    "run_detector_training", "run_pose_training_from_data"])
+                                    "run_detector_training", "run_pose_training_from_data",
+                                    "run_multiview_eval", "run_custom_scenario"])
 def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
     """Without `--device cpu` a CLI asks PyTorch for the card: where there
     is none it fails with PyTorch's own error; it does not fall back. (Where
@@ -212,7 +237,16 @@ def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
         "run_pose_training_from_data": ["--run-dir", str(tmp_path / "run"), "--data",
                                         str(tmp_path / "test"), "--models-dir",
                                         str(tmp_path / "models")],
+        "run_multiview_eval": ["--out-dir", str(tmp_path / "mv"), "--models-dir",
+                               str(tmp_path / "models"), "--scenes-dir", str(tmp_path / "test")],
+        # a scenario directory: models/, candidates.csv, scene_camera.json
+        "run_custom_scenario": ["--scenario", str(tmp_path)],
     }[script]
+    from happypose_tpu_torch.evaluation.bop_export import save_bop_csv
+
+    save_bop_csv(tmp_path / "candidates.csv", np.eye(4)[None], np.ones(1, int), np.zeros(1, int),
+                 np.zeros(1, int), np.ones(1))
+    (tmp_path / "scene_camera.json").write_text('{"0": {"cam_K": [1, 0, 0, 0, 1, 0, 0, 0, 1]}}')
     module = script.replace("_from_data", "")
     main = importlib.import_module(f"happypose_tpu_torch.scripts.{module}").main
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):

@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
                  "datasets.pose_dataset", "datasets.scene_synth", "datasets.scene_record",
                  "datasets.web_scene_dataset", "datasets.streaming_pose_dataset",
                  "training.detector_loss", "scripts.record_synthetic_dataset",
-                 "scripts.run_detector_training"):
+                 "scripts.run_detector_training", "multiview.ransac",
+                 "multiview.bundle_adjustment", "multiview.scene_predictor", "utils.colmap_io",
+                 "scripts.run_multiview_eval", "scripts.run_custom_scenario"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
