@@ -183,6 +183,25 @@ Phases (any failure raises, so the exit code is nonzero):
    max(2 x dense, 1)); one LM step on the card against the CPU (poses
    within `BA_STEP_ATOL` at lambda `BA_STEP_LAMBDA`) and the Schur blocks
    (within `BA_BLOCKS_REL` of their largest entry).
+35. Training at full width with the other backbones (phase 20's world with
+   the backbone swapped): EfficientNet-B3 as refiner and as coarse grid
+   classifier in float32, the refiner in bfloat16, the FlowNetS refiner;
+   launches a step asserted, s/step, samples/s, peak memory, one profiled
+   step (device busy share); the cut EfficientNet-B3 refiner on the card
+   against the CPU (one iteration, `CUT_LIMITS`).
+36. Serving them: `run_pose_training --backbone efficientnet_b3` (refiner,
+   coarse) and `--backbone flownet` (refiner) at 240x320 / 480x640, 2
+   steps each, then `run_accuracy_demo` at megapose-RGB's width on 2
+   batches of 16 scenes: EfficientNet-B3 refiner + coarse (576-rotation
+   grid, top-5, 5 iterations) and the FlowNetS refiner alone; launches as
+   the configs imply, s a batch, the coarse / refiner / scoring split, peak
+   memory. Every shape the demo launches at (the 768-face "textured" set
+   at 240x320, B = 288, 80, 16) is held to the plain version with its own
+   inputs.
+37. Host tools: a DeepIM-ModelNet tree written with the port's PNG writer
+   and read back through `make_scene_dataset`; `preprocess_object_dataset`
+   on the training set's meshes; `download` from a local mirror; the
+   device's memory through `utils/resources.py`.
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -1712,24 +1731,29 @@ def _train_steps(w, n_steps, first=0):
     return metrics, times, data_times, launches
 
 
-def _step_profile(w, i) -> str:
-    """One train step of `w` under `torch.profiler`: its wall time, the
-    device kernels and copies and their time (the device's busy share), and
-    the kernels that take most of it."""
+def _profile_line(fn) -> str:
+    """One call of `fn` under `torch.profiler`: its wall time, the device
+    kernels and copies and their time (the device's busy share), and the
+    kernels that take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    b = w.batch(i)
-    d = w.draws(b, i)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(lambda: w.step(w.state, b, d))
+        _, wall = _timed(fn)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: e.device_time_total, reverse=True)[:6]
-    return (f"profiled step (batch outside) {wall * 1e3:.1f} ms, "
-            f"{sum(e.count for e in device)} device kernels and copies taking {busy:.1f} ms "
-            f"(busy {busy / (wall * 1e3):.2f}); most device time: " + ", ".join(
-                f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.1f} ms" for e in top))
+    return (f"{wall * 1e3:.1f} ms, {sum(e.count for e in device)} device kernels and copies "
+            f"taking {busy:.1f} ms (busy {busy / (wall * 1e3):.2f}); most device time: "
+            + ", ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.1f} ms"
+                        for e in top))
+
+
+def _step_profile(w, i) -> str:
+    """One train step of `w` under `torch.profiler` (`_profile_line`)."""
+    b = w.batch(i)
+    d = w.draws(b, i)
+    return "profiled step (batch outside) " + _profile_line(lambda: w.step(w.state, b, d))
 
 
 def phase_training(dev) -> tuple:
@@ -1825,15 +1849,39 @@ def phase_training_bf16(dev, figures: dict) -> int:
     return n_launches
 
 
-def phase_training_cross_check(dev) -> int:
-    """Cut refiner training (WideResNet18, 60x80 renders, 120x160 images,
-    B = 4, 2 iterations) on the card and on the CPU: the same weights, one
-    batch and its draws made on the CPU and moved to the card. The loss,
-    the gradients (CUT_* tolerances) and the BatchNorm running statistics
-    after the forward (CUT_STATS_RTOL)."""
+# The cut world card against CPU, by backbone: iterations and limits.
+# EfficientNet-B3 from its own measurement (my CPU runs against float64 on
+# this world): one iteration, loss 1.3e-5, head 8.9e-4, whole gradient L2
+# 6.3e-4, worst tensor L2 2.9e-3 (a squeeze-excite bias), running statistics
+# 3.7e-4 of max(their largest, 1e-3); each limit is ~4-8x that. With two
+# iterations the CPU's float32 loss lies 4e-3 off float64 (the second
+# iteration's renders follow the first's poses), so the cut runs one. The
+# `bn2` biases of blocks 1-25 have gradient 0 in exact arithmetic (each
+# feeds 1x1 convolutions into a train-mode BatchNorm) and a running mean
+# behind a zero-mean residual stream is 0 too: such tensors are float
+# noise on both devices, held below CUT_ZERO of the largest gradient entry
+# (gradients) and by the floor of the statistics' scale.
+CUT_ZERO = 1e-6
+CUT_LIMITS = {
+    "wide_resnet18": dict(n_iterations=2, loss=CUT_LOSS_RTOL, head=CUT_HEAD_REL,
+                          glob=CUT_GLOBAL_L2, tensor=CUT_TENSOR_L2, stats=CUT_STATS_RTOL,
+                          stats_floor=0.0),
+    "efficientnet_b3": dict(n_iterations=1, loss=1e-4, head=5e-3, glob=5e-3, tensor=2e-2,
+                            stats=3e-3, stats_floor=1e-3),
+}
+
+
+def phase_training_cross_check(dev, backbone="wide_resnet18") -> int:
+    """Cut refiner training (`backbone`, WideResNet18 by default, 60x80
+    renders, 120x160 images, B = 4, the iterations of CUT_LIMITS) on the
+    card and on the CPU: the same weights, one batch and its draws made on
+    the CPU and moved to the card. The loss, the gradients and the
+    BatchNorm running statistics after the forward, within CUT_LIMITS."""
     from happypose_tpu_torch.ops import rasterizer_fused as rf
 
-    cut = dict(backbone="wide_resnet18", render=(60, 80), image=(120, 160), B=4, n_iterations=2)
+    lim = CUT_LIMITS[backbone]
+    cut = dict(backbone=backbone, render=(60, 80), image=(120, 160), B=4,
+               n_iterations=lim["n_iterations"])
     cpu = _train_world(torch.device("cpu"), "refiner", **cut)
     card = _train_world(dev, "refiner", **cut)
     b = cpu.batch(0)
@@ -1848,23 +1896,28 @@ def phase_training_cross_check(dev) -> int:
                      {n: v.cpu() for n, v in w.model.named_buffers() if "running" in n})
     launches = rf.launches
     (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda"]
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    zero = [n for n, g in g_cpu.items() if g.abs().max().item() < CUT_ZERO * largest]
+    zero_max = max([g_gpu[n].abs().max().item() / largest for n in zero] or [0.0])
+    g_cpu = {n: g for n, g in g_cpu.items() if n not in zero}
     head = ((g_gpu["pose_fc.weight"] - g_cpu["pose_fc.weight"]).abs().max()
             / g_cpu["pose_fc.weight"].abs().max()).item()
-    flat = lambda g: torch.cat([v.flatten() for v in g.values()])  # noqa: E731
+    flat = lambda g: torch.cat([g[n].flatten() for n in g_cpu])  # noqa: E731
     glob = ((flat(g_gpu) - flat(g_cpu)).norm() / flat(g_cpu).norm()).item()
     per = {n: ((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm()).item() for n in g_cpu}
     worst = max(per, key=per.get)
-    stats = max(((s_gpu[n] - s_cpu[n]).abs().max() / s_cpu[n].abs().max()).item() for n in s_cpu)
-    log(f"train cut cuda vs cpu (WideResNet18, 60x80, B=4, 2 iterations): loss {l_gpu:.7f} / "
-        f"{l_cpu:.7f} (rel {abs(l_gpu - l_cpu) / l_cpu:.2e}); head gradient {head:.2e} of its max; "
-        f"whole gradient L2 {glob:.2e}; worst tensor {worst} L2 {per[worst]:.2e}; median tensor "
-        f"L2 {statistics.median(per.values()):.2e}; running stats {stats:.2e} of their max; "
-        f"{launches} launches "
-        f"on the card")
-    assert abs(l_gpu - l_cpu) <= CUT_LOSS_RTOL * l_cpu
-    assert head <= CUT_HEAD_REL and glob <= CUT_GLOBAL_L2 and per[worst] <= CUT_TENSOR_L2
-    assert stats <= CUT_STATS_RTOL
-    assert launches == 2
+    stats = max(((s_gpu[n] - s_cpu[n]).abs().max()
+                 / max(s_cpu[n].abs().max().item(), lim["stats_floor"])).item() for n in s_cpu)
+    log(f"train cut cuda vs cpu ({backbone}, 60x80, B=4, {lim['n_iterations']} iterations): "
+        f"loss {l_gpu:.7f} / {l_cpu:.7f} (rel {abs(l_gpu - l_cpu) / l_cpu:.2e}); head gradient "
+        f"{head:.2e} of its max; whole gradient L2 {glob:.2e}; worst tensor {worst} L2 "
+        f"{per[worst]:.2e}; median tensor L2 {statistics.median(per.values()):.2e}; "
+        f"{len(zero)} tensors of gradient 0 (card's largest {zero_max:.1e} of the whole "
+        f"gradient's); running stats {stats:.2e} of their max; {launches} launches on the card")
+    assert abs(l_gpu - l_cpu) <= lim["loss"] * l_cpu
+    assert head <= lim["head"] and glob <= lim["glob"] and per[worst] <= lim["tensor"]
+    assert zero_max < CUT_ZERO and stats <= lim["stats"]
+    assert launches == lim["n_iterations"]
     return launches
 
 
@@ -2421,10 +2474,11 @@ HELD_SHAPES = frozenset({(B, tuple(res)) for _, B, res, _, _ in KERNEL_SHAPES} |
     (RECORD_BATCH * 5, FRAME_RES), (RECORD_BATCH * 5, (RECORD_SHADOW, RECORD_SHADOW))})
 
 
-def _check_new_shapes(path: str, inputs: "_KernelInputs", kernel: dict) -> None:
-    """Hold each shape a multiview path launched at, and phase 3 does not
-    hold, to the plain version: lists, output, time beside the bound."""
-    held = kernel.setdefault("held", set(HELD_SHAPES))
+def _check_new_shapes(path: str, inputs: "_KernelInputs", kernel: dict, held=None) -> None:
+    """Hold each shape a path launched at, and phase 3 does not hold (or
+    that is not in `held`, where given), to the plain version: lists,
+    output, time beside the bound."""
+    held = kernel.setdefault("held", set(HELD_SHAPES)) if held is None else held
     for (B, res), (A, bbox, _) in sorted(inputs.seen.items()):
         if (B, res) in held:
             continue
@@ -2824,6 +2878,285 @@ def phase_large_ba(dev, scene: Path) -> dict:
     assert r_s < max(2.0 * r_d, 1.0), (r_d, r_s)
     return figures
 
+# ------------------------------------------- the other backbones and the tools
+
+BACKBONE_TRAINING = (  # (backbone, role, compute dtype)
+    ("efficientnet_b3", "refiner", "float32"),
+    ("efficientnet_b3", "coarse", "float32"),
+    ("efficientnet_b3", "refiner", "bfloat16"),
+    ("flownet", "refiner", "float32"),
+)
+# `run_pose_training` with the new backbones: epochs, epoch size, batch
+BB_CLI_EPOCHS, BB_CLI_EPOCH_SIZE, BB_CLI_BATCH = 1, 16, 8
+# `run_accuracy_demo` at megapose-RGB's width: 32 scenes in batches of 16,
+# the 576-rotation grid, top-5, 5 refiner iterations
+DEMO_SCENES, DEMO_BATCH, DEMO_GRID, DEMO_HYPOTHESES, DEMO_ITERATIONS = 32, 16, 576, 5, 5
+
+
+def phase_backbone_training(dev) -> tuple:
+    """Training at full width with the other backbones: EfficientNet-B3 as
+    refiner (240x320 renders, 480x640 images, B = 16, 3 iterations) and as
+    coarse grid classifier (B = 8 x 8), both in float32, the refiner in
+    bfloat16 too, and the FlowNetS refiner; TRAIN_STEPS steps each from
+    seeded weights (phase 20's world with the backbone swapped): launches a
+    step asserted, finite losses, no skipped step; s/step of steps 2-6,
+    samples/s, peak memory, one step under the profiler. Then the cut
+    EfficientNet-B3 refiner on the card against the CPU (its CUT_LIMITS).
+    Returns ({case: figures}, {path: launches})."""
+    figures, launches = {}, {}
+    for backbone, role, dtype in BACKBONE_TRAINING:
+        n_steps = TRAIN_STEPS
+        per_step = 1 + REFINER_ITERATIONS if role == "refiner" else 2
+        w = _train_world(dev, role, backbone=backbone, B=TRAIN_BATCH[role], compute_dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, data_times, n_launch = _train_steps(w, n_steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s_step = statistics.median(times[1:])
+        name = f"{backbone} {role} {dtype}"
+        figures[name] = {"s_per_step": s_step, "samples_per_s": w.B / s_step, "peak_gib": peak,
+                         "s_batch": statistics.median(data_times[1:])}
+        log(f"train {name} full width (render {RES}, images {FRAME_RES}, B={w.B}"
+            f"{', 3 iterations' if role == 'refiner' else f', {GRID_HYPOTHESES} hypotheses'}): "
+            f"launches a step {n_launch}, expected {per_step}; loss "
+            f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
+            f"{[round(m['grad_norm'], 3) for m in metrics]}; s/step (steps 2-{n_steps}, batch "
+            f"included) {_fmt(times[1:])}, of it the synthetic batch "
+            f"{figures[name]['s_batch']:.4f}; {figures[name]['samples_per_s']:.1f} samples/s; "
+            f"peak memory {peak:.2f} GiB; first step {times[0]:.3f} s")
+        assert n_launch == [per_step] * n_steps, f"{name}: launches {n_launch}"
+        assert all(math.isfinite(m["loss"]) and m["loss"] > 0 for m in metrics)
+        assert all(m["skipped_nonfinite"] == 0 for m in metrics)
+        launches[f"train {name} ({n_steps} steps)"] = sum(n_launch)
+        log(f"train {name}: " + _step_profile(w, n_steps))
+        del w
+    launches["train cut cuda efficientnet_b3 (1 step)"] = phase_training_cross_check(
+        dev, backbone="efficientnet_b3")
+    return figures, launches
+
+
+class _StageClock:
+    """While active, the seconds of each `PoseEstimator` stage call (coarse
+    scoring, refiner, re-scoring; host clock around synchronized work)."""
+
+    STAGES = ("forward_coarse", "forward_refiner", "forward_scoring")
+
+    def __init__(self):
+        self.seconds = {k: [] for k in self.STAGES}
+        self.last_call = {}
+
+    def __enter__(self):
+        from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
+
+        self._saved = {k: getattr(PoseEstimator, k) for k in self.STAGES}
+        for k, fn in self._saved.items():
+            def timed(est, *a, _fn=fn, _k=k, **kw):
+                out, t = _timed(lambda: _fn(est, *a, **kw))
+                self.seconds[_k].append(t)
+                self.last_call[_k] = (_fn, est, a, kw)
+                return out
+            setattr(PoseEstimator, k, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
+
+        for k, fn in self._saved.items():
+            setattr(PoseEstimator, k, fn)
+
+
+def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
+    """From training to serving with the other backbones: `run_pose_training
+    --backbone efficientnet_b3` writes a refiner and a coarse run directory
+    and `--backbone flownet` a refiner (240x320 renders, 480x640 images,
+    2 steps each), then `run_accuracy_demo` at megapose-RGB's width reads
+    them: EfficientNet-B3 refiner + coarse (576-rotation grid, top-5, 5
+    iterations; 1 + 32 + 25 + 1 launches a batch of 16 scenes) and the
+    FlowNetS refiner alone (the CosyPose flavour: 1 + 5). Seconds a batch,
+    the stage split, peak memory; every shape the demo launches at is held
+    to the plain version with the demo's own inputs."""
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_accuracy_demo, run_pose_training
+
+    runs = root / "backbone_runs"
+    common = ["--data", "synth", "--synth-set", "textured", "--epochs", str(BB_CLI_EPOCHS),
+              "--epoch-size", str(BB_CLI_EPOCH_SIZE), "--batch-size", str(BB_CLI_BATCH),
+              "--render-size", *map(str, RES), "--image-size", *map(str, FRAME_RES),
+              "--device", str(dev)]
+    n_steps = BB_CLI_EPOCHS * (BB_CLI_EPOCH_SIZE // BB_CLI_BATCH)
+    launches = {}
+    for name, extra, per_step in (
+            ("b3_refiner", ["--backbone", "efficientnet_b3", "--n-iterations", "2"], 3),
+            ("b3_coarse", ["--backbone", "efficientnet_b3", "--model-type", "coarse"], 2),
+            ("flownet_refiner", ["--backbone", "flownet", "--n-iterations", "2"], 3)):
+        rf.launches = 0
+        rc, t = _timed(lambda: run_pose_training.main(["--run-dir", str(runs / name)] + common + extra))
+        launches[f"run_pose_training {name} ({n_steps} steps)"] = rf.launches
+        lines = [json.loads(x) for x in (runs / name / "log.txt").read_text().splitlines()]
+        log(f"run_pose_training {name}: {t:.2f} s, launches {rf.launches} (expected "
+            f"{n_steps * per_step}); loss {[round(x['loss'], 4) for x in lines]}")
+        assert rc == 0 and rf.launches == n_steps * per_step and len(lines) == BB_CLI_EPOCHS
+        assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in lines)
+
+    from happypose_tpu_torch.inference.types import InferenceConfig
+
+    n_batches = DEMO_SCENES // DEMO_BATCH
+    icfg = InferenceConfig(n_refiner_iterations=DEMO_ITERATIONS, n_pose_hypotheses=DEMO_HYPOTHESES,
+                           SO3_grid_size=DEMO_GRID)
+    demo_args = ["--image-size", *map(str, FRAME_RES), "--so3-grid", str(DEMO_GRID),
+                 "--n-hypotheses", str(DEMO_HYPOTHESES), "--n-refiner-iterations",
+                 str(DEMO_ITERATIONS), "--batch-size", str(DEMO_BATCH), "--n-scenes",
+                 str(DEMO_SCENES), "--synth-set", "textured"]
+    figures = {}
+    # the textured set's shapes are held with the demo's own inputs (the debug
+    # mesh's rows of phase 3 share their batch and resolution only), but for
+    # the batch of scenes, phase 3's training row
+    held = {(TRAIN_BATCH["refiner"], FRAME_RES)}
+    # a batch: its scenes (1 launch), then the pipeline on one detection a scene
+    for name, dirs, per_batch in (
+            ("efficientnet_b3 refiner + coarse",
+             ["--refiner-dir", str(runs / "b3_refiner"), "--coarse-dir", str(runs / "b3_coarse")],
+             1 + _frame_launches(icfg, DEMO_BATCH, DEMO_GRID)),
+            ("flownet refiner", ["--refiner-dir", str(runs / "flownet_refiner")],
+             1 + math.ceil(DEMO_BATCH / icfg.bsz_objects) * DEMO_ITERATIONS)):
+        out = root / "accuracy_demo.json"
+        inputs = _KernelInputs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        with _StageClock() as clock, inputs:
+            rf.launches = 0
+            rc, t = _timed(lambda: run_accuracy_demo.main(
+                dirs + demo_args + ["--out", str(out), "--device", str(dev)]))
+            n = rf.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+        summary = json.loads(out.read_text())
+        stages = {k: round(sum(v) / n_batches, 4) for k, v in clock.seconds.items() if v}
+        figures[name] = {"s_per_batch": t / n_batches, "stages_s_per_batch": stages,
+                         "peak_gib": peak, "launches": n}
+        launches[f"run_accuracy_demo {name} ({n_batches} batches of {DEMO_BATCH})"] = n
+        log(f"run_accuracy_demo {name}: {t:.2f} s for {n_batches} batches of {DEMO_BATCH} scenes "
+            f"({t / n_batches:.3f} s a batch, models loaded and first calls included); stage "
+            f"seconds a batch {stages}; peak memory {peak:.2f} GiB above the resident; launches "
+            f"{n} (expected {per_batch * n_batches}); summary {json.dumps(summary)}")
+        assert rc == 0 and n == per_batch * n_batches, (n, per_batch * n_batches)
+        assert summary["n_scenes"] == DEMO_SCENES
+        # what bounds the slowest stage: its last call again, under the profiler
+        stage = max(stages, key=stages.get)
+        fn, est, a, kw = clock.last_call[stage]
+        log(f"run_accuracy_demo {name}: one {stage} call of a batch, profiled: "
+            + _profile_line(lambda: fn(est, *a, **kw)))
+        assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
+        _check_new_shapes("accuracy_demo_textured", inputs, kernel, held=held)
+    return {"figures": figures, "launches": launches}
+
+
+def phase_host_tools(dev, root: Path) -> None:
+    """The host tools on the card's machine: a DeepIM-ModelNet tree written
+    with the port's PNG writer and read back through `make_scene_dataset`;
+    `preprocess_object_dataset` (scale, pointclouds, stats, subset) on the
+    meshes of the "textured" training set; `download` from a local mirror
+    written here (a symlink, then a copy; no mirror: exit code 2);
+    `log_memory` and `get_device_memory` on the card."""
+    import logging
+
+    import os
+
+    from happypose_tpu_torch.datasets.datasets_cfg import make_scene_dataset
+    from happypose_tpu_torch.datasets.deepim_modelnet import DeepImModelNetDataset
+    from happypose_tpu_torch.meshes.io import load_ply, save_ply
+    from happypose_tpu_torch.scripts import download, preprocess_object_dataset
+    from happypose_tpu_torch.training.synth_data import make_synth_mesh_db
+    from happypose_tpu_torch.utils.png import write_png
+    from happypose_tpu_torch.utils.resources import get_device_memory, log_memory
+
+    t0 = time.perf_counter()
+    data = root / "modelnet" / "modelnet_render_v1" / "data"
+    (root / "modelnet" / "model_set").mkdir(parents=True)
+    (root / "modelnet" / "model_set" / "chair_test.txt").write_text("chair_0001\nchair_0002\n")
+    rs = np.random.RandomState(0)
+    written = []
+    for obj in ("chair_0001", "chair_0002"):
+        for im in range(2):
+            stem = f"{obj}_{im:04d}"
+            rgb = rs.randint(0, 255, (480, 640, 3)).astype(np.uint8)
+            depth = (rs.rand(480, 640) * 2000).astype(np.uint16)
+            label = np.zeros((480, 640), np.uint8)
+            label[100 + im:300, 200:500] = 1
+            T = np.eye(4)
+            T[:3, 3] = [0.01 * im, 0.0, 0.8]
+            for sub, suffix in (("real", ""), ("rendered", "_0")):
+                d = data / sub / "chair" / "test"
+                d.mkdir(parents=True, exist_ok=True)
+                (d / f"{stem}{suffix}-pose.txt").write_text(
+                    "\n".join(" ".join(str(x) for x in T[r]) for r in range(3)))
+            d = data / "real" / "chair" / "test"
+            write_png(d / f"{stem}-color.png", rgb)
+            write_png(d / f"{stem}-depth.png", depth)
+            write_png(d / f"{stem}-label.png", label)
+            written.append((rgb, depth, T))
+    ds = make_scene_dataset("deepim.modelnet-chair-test", data_dir=root, load_depth=True)
+    assert isinstance(ds, DeepImModelNetDataset) and np.array_equal(ds[0].rgb, written[0][0])
+    ds = DeepImModelNetDataset(root / "modelnet", "chair", n_images_per_object=2, load_depth=True)
+    for (rgb, depth, T), obs in zip(written, (ds[i] for i in range(len(ds)))):
+        assert np.array_equal(obs.rgb, rgb)
+        assert np.array_equal(obs.depth, depth.astype(np.float32) / 1000.0)
+        assert np.allclose(obs.TWO[0], T) and np.allclose(obs.TWO_init[0], T)
+    log(f"DeepIM-ModelNet tree: {len(ds)} frames 480x640 written with the port's PNG writer and "
+        f"read back (make_scene_dataset): rgb, depth (mm -> m), poses equal, boxes "
+        f"{[ds[i].bboxes[0].tolist() for i in range(2)]}")
+
+    meshes = root / "tool_meshes"
+    (meshes / "sub").mkdir(parents=True)
+    for label, mesh in make_synth_mesh_db("textured").meshes.items():
+        save_ply(meshes / ("sub" if label == "box" else "") / f"{label}.ply", mesh)
+    out = root / "tool_out"
+    assert preprocess_object_dataset.main(["scale", "--in-dir", str(meshes), "--out-dir",
+                                           str(out / "scaled"), "--target-diameter", "0.2"]) == 0
+    assert preprocess_object_dataset.main(["pointclouds", "--in-dir", str(meshes), "--out-dir",
+                                           str(out / "pc"), "--n-points", "2000"]) == 0
+    assert preprocess_object_dataset.main(["stats", "--in-dir", str(meshes), "--out",
+                                           str(out / "stats.json")]) == 0
+    assert preprocess_object_dataset.main(["subset", "--stats", str(out / "stats.json"), "--out",
+                                           str(out / "subset.json"), "--max-faces", "100"]) == 0
+    stats = json.loads((out / "stats.json").read_text())
+    diameters = [load_ply(p).diameter for p in sorted((out / "scaled").rglob("*.ply"))]
+    with np.load(out / "pc" / "sphere.npz") as pc:
+        radius = np.linalg.norm(pc["points"], axis=-1)
+    subset = json.loads((out / "subset.json").read_text())
+    log(f"preprocess_object_dataset: stats {stats}; scaled diameters {diameters}; 2000 points on "
+        f"the sphere at radius {radius.min():.4f}-{radius.max():.4f}; subset --max-faces 100 "
+        f"{subset}")
+    assert sorted(stats) == ["sphere.ply", "sub/box.ply"]
+    assert all(abs(d - 0.2) < 1e-5 for d in diameters) and len(diameters) == 2
+    assert np.allclose(radius, 0.04, atol=1e-3) and subset == ["sub/box.ply"]
+
+    mirror = root / "mirror"
+    (mirror / "examples" / "demo").mkdir(parents=True)
+    (mirror / "examples" / "demo" / "f.txt").write_text("x")
+    base = ["--examples", "demo", "--mirror", str(mirror)]
+    assert download.main(base + ["--data-dir", str(root / "dl_link")]) == 0
+    assert download.main(base + ["--data-dir", str(root / "dl_copy"), "--copy"]) == 0
+    env = os.environ.pop(download.MIRROR_ENV, None)
+    try:
+        assert download.main(["--examples", "demo", "--data-dir", str(root / "dl_none")]) == 2
+    finally:
+        if env is not None:
+            os.environ[download.MIRROR_ENV] = env
+    link, copy = root / "dl_link" / "examples" / "demo", root / "dl_copy" / "examples" / "demo"
+    assert link.is_symlink() and not copy.is_symlink()
+    assert (link / "f.txt").read_text() == (copy / "f.txt").read_text() == "x"
+    log("download: linked and copied examples/demo from a local mirror")
+
+    logger = logging.getLogger("chip_smoke.resources")
+    logger.addHandler(logging.StreamHandler(sys.stdout))
+    logger.setLevel(logging.INFO)
+    log_memory(logger, prefix="log_memory: ")
+    memory = get_device_memory()
+    log(f"get_device_memory: {memory}")
+    assert 0 < memory["bytes_in_use_gib"] <= memory["bytes_limit_gib"] < 200
+    log(f"host tools: {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> None:
     sys.path.insert(0, str(ROOT))
@@ -2892,6 +3225,14 @@ def main() -> None:
         log(f"multiview phases 30-34: {sum(seconds.values()):.1f} s (by phase {seconds}); "
             "figures: " + json.dumps({"scene": mv["figures"], "custom_scenario": custom,
                                       "large_ba": ba}))
+        seconds = {}
+        bb_figures, bb_launches = timed_phase(35, phase_backbone_training, dev)
+        launches.update(bb_launches)
+        serving = timed_phase(36, phase_backbone_serving, dev, root, kernel)
+        launches.update(serving["launches"])
+        timed_phase(37, phase_host_tools, dev, root)
+        log(f"backbone and tool phases 35-37: {sum(seconds.values()):.1f} s (by phase {seconds}); "
+            "figures: " + json.dumps({"training": bb_figures, "serving": serving["figures"]}))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",

@@ -11,8 +11,8 @@ Scene datasets (`make_scene_dataset`):
   "<ds>.pbr"          train_pbr split
   "<ds>.<split>"      any split directory (e.g. "ycbv.train_real")
   "webdataset.<dir>"  webdataset shard directory (`WebSceneDataset`)
-  "deepim.modelnet-<category>-<split>"  DeepIM-ModelNet frames: not ported
-                      yet, raises
+  "deepim.modelnet-<category>-<split>"  DeepIM-ModelNet frames
+                      (`<root>/modelnet`)
   "<path>"            any explicit BOP split directory
 
 Object datasets (`make_object_dataset`):
@@ -73,9 +73,11 @@ def make_scene_dataset(
         return WebSceneDataset(ds_name.split(".", 1)[1])
 
     if ds_name.startswith("deepim.modelnet-"):
-        raise NotImplementedError(
-            f"{ds_name!r}: `deepim_modelnet.py` is not ported yet "
-            "(ROADMAP.md, queue 1, 'the remaining dataset readers')"
+        from happypose_tpu_torch.datasets.deepim_modelnet import DeepImModelNetDataset
+
+        _, category, split = ds_name.split(".", 1)[1].split("-")
+        return DeepImModelNetDataset(
+            root / "modelnet", category, split=split, load_depth=load_depth
         )
 
     if "." in ds_name and not os.path.sep in ds_name:

@@ -1,8 +1,10 @@
-"""CNN backbones (PyTorch port of the ResNet and WideResNet parts of
-`happypose_tpu/models/backbones.py`): a torchvision-style ResNet v1 (the
-MegaPose backbone) and the pre-activation WideResNet18/34 with a 5x5/s2
-stem (the CosyPose backbones), each with a free number of input channels.
-The convolutions go to cuDNN on the card.
+"""CNN backbones (PyTorch port of `happypose_tpu/models/backbones.py`): a
+torchvision-style ResNet v1 (the MegaPose backbone), the pre-activation
+WideResNet18/34 with a 5x5/s2 stem (the CosyPose backbones),
+EfficientNet-B0/B3 (the backbone of CosyPose's published pose models) and
+the FlowNetS encoder (DeepIM's), each with a free number of input
+channels. On the card the convolutions go to cuDNN, EfficientNet's
+depthwise ones to PyTorch's own kernels.
 
 Layout is NCHW, PyTorch's own; the Flax model runs NHWC, and the weight
 bridge (`utils/weights_from_jax.py`) converts its kernels.
@@ -15,6 +17,7 @@ unbiased one (larger by n / (n - 1), 1.3% at a 4x5 map and B = 4).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -27,17 +30,18 @@ BN_EPS = 1e-5  # flax.linen.BatchNorm's default epsilon
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train-mode update of the running statistics
     is Flax's: ra = 0.9 ra + 0.1 batch, with the biased batch variance,
-    computed in float32 whatever the input's dtype. Both buffers move in
-    one `_foreach_lerp_`; `num_batches_tracked` stays as loaded (the
-    momentum is fixed, and Flax keeps no count). The statistics take a
-    pass of their own before `F.batch_norm` (cuDNN on the card) normalizes:
-    a refiner step is bound by the host's launches, not by these bytes."""
+    computed in the buffers' dtype (float32 under bfloat16 autocast). Both
+    buffers move in one `_foreach_lerp_`; `num_batches_tracked` stays as
+    loaded (the momentum is fixed, and Flax keeps no count). The statistics
+    take a pass of their own before `F.batch_norm` (cuDNN on the card)
+    normalizes: a refiner step is bound by the host's launches, not by
+    these bytes."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=(0, 2, 3), correction=0)
             torch._foreach_lerp_([self.running_mean, self.running_var], [mean, var],
                                  self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -154,3 +158,125 @@ def WideResNet18(n_inputs: int, width: float = 1.0) -> WideResNet:
 
 def WideResNet34(n_inputs: int, width: float = 1.0) -> WideResNet:
     return WideResNet(layers=(3, 4, 6, 3), n_inputs=n_inputs, width=width)
+
+
+class MBConv(nn.Module):
+    """Mobile inverted bottleneck (the EfficientNet block): an optional 1x1
+    expansion, a depthwise k x k convolution carrying the stride, a
+    squeeze-excite gate sized from the block's input channels, and a 1x1
+    projection; the residual only where the shape is kept. No drop-connect,
+    as in the JAX package."""
+
+    def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int, stride: int,
+                 se_ratio: float = 0.25):
+        super().__init__()
+        mid = in_ch * expand
+        self.expand_conv = nn.Conv2d(in_ch, mid, 1, bias=False) if expand != 1 else None
+        self.bn0 = _bn(mid) if expand != 1 else None
+        self.depthwise = nn.Conv2d(mid, mid, kernel, stride, padding=kernel // 2, groups=mid,
+                                   bias=False)
+        self.bn1 = _bn(mid)
+        se_ch = max(1, int(in_ch * se_ratio))
+        self.se_reduce = nn.Conv2d(mid, se_ch, 1)
+        self.se_expand = nn.Conv2d(se_ch, mid, 1)
+        self.project = nn.Conv2d(mid, out_ch, 1, bias=False)
+        self.bn2 = _bn(out_ch)
+        self.residual = stride == 1 and in_ch == out_ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        if self.expand_conv is not None:
+            h = F.silu(self.bn0(self.expand_conv(h)))
+        h = F.silu(self.bn1(self.depthwise(h)))
+        s = h.mean(dim=(2, 3), keepdim=True)
+        s = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(s))))
+        h = self.bn2(self.project(h * s))
+        return h + x if self.residual else h
+
+
+class EfficientNet(nn.Module):
+    """EfficientNet (Tan & Le, ICML'19) with a free number of input
+    channels: 3x3/s2 stem, the seven MBConv stages of B0 scaled by
+    `width_mult` (channels, rounded as the reference rounds them) and
+    `depth_mult` (blocks a stage), a 1x1 head, global average pool.
+    Input [B, n_inputs, H, W] -> features [B, n_features]."""
+
+    # (expand, out_ch, n_repeat, stride, kernel) per stage (B0 base)
+    STAGES = (
+        (1, 16, 1, 1, 3),
+        (6, 24, 2, 2, 3),
+        (6, 40, 2, 2, 5),
+        (6, 80, 3, 2, 3),
+        (6, 112, 3, 1, 5),
+        (6, 192, 4, 2, 5),
+        (6, 320, 1, 1, 3),
+    )
+
+    def __init__(self, n_inputs: int, width_mult: float = 1.0, depth_mult: float = 1.0):
+        super().__init__()
+        self.width_mult = width_mult
+        stem = self._round_ch(32)
+        self.conv_stem = nn.Conv2d(n_inputs, stem, 3, 2, padding=1, bias=False)
+        self.bn_stem = _bn(stem)
+        blocks, in_ch = [], stem
+        for expand, out_ch, repeats, stride, kernel in self.STAGES:
+            out_ch = self._round_ch(out_ch)
+            for r in range(int(math.ceil(repeats * depth_mult))):
+                blocks.append(MBConv(in_ch, out_ch, expand, kernel, stride if r == 0 else 1))
+                in_ch = out_ch
+        self.blocks = nn.Sequential(*blocks)
+        self.n_features = self._round_ch(1280)
+        self.conv_head = nn.Conv2d(in_ch, self.n_features, 1, bias=False)
+        self.bn_head = _bn(self.n_features)
+
+    def _round_ch(self, ch: int) -> int:
+        ch = ch * self.width_mult
+        out = max(8, int(ch + 4) // 8 * 8)
+        if out < 0.9 * ch:
+            out += 8
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.silu(self.bn_stem(self.conv_stem(x)))
+        x = F.silu(self.bn_head(self.conv_head(self.blocks(x))))
+        return x.mean(dim=(2, 3))
+
+
+def EfficientNetB0(n_inputs: int) -> EfficientNet:
+    return EfficientNet(n_inputs, width_mult=1.0, depth_mult=1.0)
+
+
+def EfficientNetB3(n_inputs: int) -> EfficientNet:
+    """The backbone of CosyPose's published pose models: a 40-channel stem,
+    26 blocks, 1536 features."""
+    return EfficientNet(n_inputs, width_mult=1.2, depth_mult=1.4)
+
+
+class FlowNetS(nn.Module):
+    """The FlowNetS contracting path (the 'flownet' pose backbone, DeepIM's
+    encoder): ten convolutions, LeakyReLU(0.1), global average pool; a
+    convolution has a bias only without BatchNorm. Input [B, n_inputs, H, W]
+    -> features [B, 1024]."""
+
+    n_features = 1024
+    # (out channels, kernel, stride): conv1, conv2, conv3, conv3_1, ..., conv6_1
+    LAYERS = ((64, 7, 2), (128, 5, 2), (256, 5, 2), (256, 3, 1), (512, 3, 2), (512, 3, 1),
+              (512, 3, 2), (512, 3, 1), (1024, 3, 2), (1024, 3, 1))
+
+    def __init__(self, n_inputs: int, use_batchnorm: bool = False):
+        super().__init__()
+        convs, in_ch = [], n_inputs
+        for ch, k, s in self.LAYERS:
+            convs.append(nn.Conv2d(in_ch, ch, k, s, padding=(k - 1) // 2, bias=not use_batchnorm))
+            in_ch = ch
+        self.convs = nn.ModuleList(convs)
+        self.bns = (nn.ModuleList(_bn(ch) for ch, _, _ in self.LAYERS)
+                    if use_batchnorm else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, conv in enumerate(self.convs):
+            x = conv(x)
+            if self.bns is not None:
+                x = self.bns[i](x)
+            x = F.leaky_relu(x, 0.1)
+        return x.mean(dim=(2, 3))

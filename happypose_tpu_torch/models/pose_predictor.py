@@ -4,7 +4,8 @@
 One iteration: crop the observation around the reprojected model points,
 render the object at the current pose in the crop camera (the hand-written
 CUDA rasterizer for CUDA tensors), run the backbone (ResNet34 for
-MegaPose, WideResNet18/34 for CosyPose) on [crop (with its depth channel
+MegaPose, WideResNet18/34 for CosyPose; EfficientNet-B3 or FlowNetS by
+name) on [crop (with its depth channel
 when `input_depth`), rgb render, normals and depth renders when
 configured; depth channels normalized by the reference point's depth],
 then either apply the SE(3) update of the pose
@@ -44,7 +45,13 @@ from happypose_tpu_torch.lib3d.pose_update import pose_update_with_reference_poi
 from happypose_tpu_torch.lib3d.rotations import quat_to_rotmat, rotmat_from_ortho6d
 from happypose_tpu_torch.lib3d.transforms import make_T, normalize_T
 from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
-from happypose_tpu_torch.models.backbones import ResNet34, WideResNet18, WideResNet34
+from happypose_tpu_torch.models.backbones import (
+    EfficientNetB3,
+    FlowNetS,
+    ResNet34,
+    WideResNet18,
+    WideResNet34,
+)
 from happypose_tpu_torch.ops.crop_resize import crop_images_matmul
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 
@@ -58,6 +65,8 @@ _BACKBONES = {
     "resnet34": ResNet34,
     "wide_resnet18": WideResNet18,
     "wide_resnet34": WideResNet34,
+    "efficientnet_b3": EfficientNetB3,
+    "flownet": FlowNetS,
 }
 
 
@@ -66,6 +75,7 @@ class PosePredictorConfig:
     """Static model configuration."""
 
     backbone: str = "resnet34"  # resnet34 | wide_resnet18 | wide_resnet34
+    #   | efficientnet_b3 | flownet
     render_size: Tuple[int, int] = (240, 320)
     multiview_type: str = "TCO"  # TCO | front_1view | front_3views | sphere_26views
     remove_TCO_rendering: bool = False

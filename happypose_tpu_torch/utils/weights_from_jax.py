@@ -1,16 +1,18 @@
 """Flax -> PyTorch weight bridge for the pose predictor and the detector.
 
-Turns the variables of a Flax `happypose_tpu` `PosePredictor` (ResNet34 or
-WideResNet backbone) or `FCOSDetector` — `{"params": ..., "batch_stats":
-...}` as nested dicts of numpy arrays — into a `state_dict` of this
-package's module of the same name. Modules are matched by Flax's
-auto-names (`Conv_k`, `BatchNorm_k`, `BasicBlockV1_k`, `BasicBlockV2_k`,
-`Bottleneck_k`, numbered in creation order within their parent) and the
-modules' own names (`backbone`, `pose_fc`, `views_logits_head`,
-`cls_tower_i`, ...). Conv kernels go from HWIO to OIHW, dense kernels are
-transposed, and BatchNorm `scale`/`bias`/`mean`/`var` become
-`weight`/`bias`/`running_mean`/`running_var`; both frameworks use
-eps = 1e-5 (`models.backbones.BN_EPS`). This module imports no JAX.
+Turns the variables of a Flax `happypose_tpu` `PosePredictor` (ResNet34,
+WideResNet, EfficientNet or FlowNetS backbone) or `FCOSDetector` —
+`{"params": ..., "batch_stats": ...}` as nested dicts of numpy arrays —
+into a `state_dict` of this package's module of the same name. Modules are
+matched by Flax's auto-names (`Conv_k`, `BatchNorm_k`, `BasicBlockV1_k`,
+`BasicBlockV2_k`, `MBConv_k`, `Bottleneck_k`, numbered in creation order
+within their parent) and the modules' own names (`backbone`, `pose_fc`,
+`views_logits_head`, `cls_tower_i`, ...). Conv kernels go from HWIO to
+OIHW (a depthwise kernel `(k, k, 1, C)` becomes `(C, 1, k, k)` the same
+way), dense kernels are transposed, and BatchNorm `scale` / `bias` /
+`mean` / `var` become `weight` / `bias` / `running_mean` / `running_var`;
+both frameworks use eps = 1e-5 (`models.backbones.BN_EPS`). This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -92,14 +94,77 @@ def wide_resnet_state_dict(params: Tree, stats: Tree, prefix: str = "") -> Dict[
     return sd
 
 
+def efficientnet_state_dict(params: Tree, stats: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict of `models.backbones.EfficientNet` from a Flax
+    `EfficientNet`'s params and batch stats: the stem is `Conv_0` /
+    `BatchNorm_0`, the head `Conv_1` / `BatchNorm_1`. An `MBConv` with an
+    expansion creates five convs (expand, depthwise, the two of the
+    squeeze-excite, project) and three BatchNorms; without one (the blocks
+    of the first stage: one in B0, two in B3) every index shifts down by
+    one."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}conv_stem", params["Conv_0"])
+    _bn(sd, f"{prefix}bn_stem", params["BatchNorm_0"], stats["BatchNorm_0"])
+    i = 0
+    while f"MBConv_{i}" in params:
+        p, s = params[f"MBConv_{i}"], stats[f"MBConv_{i}"]
+        name = f"{prefix}blocks.{i}"
+        convs = ["depthwise", "se_reduce", "se_expand", "project"]
+        bns = ["bn1", "bn2"]
+        if "Conv_4" in p:  # the 1x1 expansion, created first
+            convs.insert(0, "expand_conv")
+            bns.insert(0, "bn0")
+        for k, conv in enumerate(convs):
+            _conv(sd, f"{name}.{conv}", p[f"Conv_{k}"])
+        for k, bn in enumerate(bns):
+            _bn(sd, f"{name}.{bn}", p[f"BatchNorm_{k}"], s[f"BatchNorm_{k}"])
+        i += 1
+    _conv(sd, f"{prefix}conv_head", params["Conv_1"])
+    _bn(sd, f"{prefix}bn_head", params["BatchNorm_1"], stats["BatchNorm_1"])
+    return sd
+
+
+_FLOWNET_LAYERS = 10
+_FLOWNET_CONVS = frozenset(f"Conv_{k}" for k in range(_FLOWNET_LAYERS))
+_FLOWNET_BNS = frozenset(f"BatchNorm_{k}" for k in range(_FLOWNET_LAYERS))
+
+
+def flownet_state_dict(params: Tree, stats: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict of `models.backbones.FlowNetS` from a Flax `FlowNetS`'s
+    params (`Conv_0..9`) and, with `use_batchnorm`, `BatchNorm_0..9`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k in range(_FLOWNET_LAYERS):
+        _conv(sd, f"{prefix}convs.{k}", params[f"Conv_{k}"])
+        if f"BatchNorm_{k}" in params:
+            _bn(sd, f"{prefix}bns.{k}", params[f"BatchNorm_{k}"], stats[f"BatchNorm_{k}"])
+    return sd
+
+
+def backbone_state_dict(params: Tree, stats: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """State dict of any of the port's pose backbones, the kind read from
+    the Flax tree's names: `BasicBlockV2_*` (WideResNet), `BasicBlockV1_*`
+    (ResNet), `MBConv_*` (EfficientNet), or the bare `Conv_0..9` of
+    FlowNetS (with `BatchNorm_0..9` or without). Any other tree raises,
+    naming what it holds."""
+    names = set(params)
+    for block, to_sd in (("BasicBlockV2_0", wide_resnet_state_dict),
+                         ("BasicBlockV1_0", resnet_state_dict),
+                         ("MBConv_0", efficientnet_state_dict)):
+        if block in names:
+            return to_sd(params, stats, prefix)
+    if names in (_FLOWNET_CONVS, _FLOWNET_CONVS | _FLOWNET_BNS):
+        return flownet_state_dict(params, stats, prefix)
+    raise ValueError(f"unknown backbone tree: its modules are {sorted(names)}")
+
+
 def pose_predictor_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
     """State dict of `models.pose_predictor.PosePredictor` from the Flax
-    predictor's variables; the backbone kind is read from its block names."""
-    params, stats = variables["params"], variables["batch_stats"]
-    backbone_sd = (
-        wide_resnet_state_dict if "BasicBlockV2_0" in params["backbone"] else resnet_state_dict
-    )
-    sd = backbone_sd(params["backbone"], stats["backbone"], prefix="backbone.")
+    predictor's variables; the backbone kind is read from its names
+    (`backbone_state_dict`). A predictor without BatchNorm (FlowNetS's
+    default) has no `batch_stats`."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {}).get("backbone", {})
+    sd = backbone_state_dict(params["backbone"], stats, prefix="backbone.")
     for head in ("pose_fc", "views_logits_head"):
         if head in params:
             _dense(sd, head, params[head])

@@ -235,8 +235,11 @@ def test_scene_dataset_from_a_path_and_names_not_ported(tmp_path):
     _write(tbop, MeshDataBase, tmp_path)
     ds = tcfg.make_scene_dataset(str(tmp_path / "test"))
     assert len(ds) == 3 and not ds.load_depth
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.make_scene_dataset("deepim.modelnet-airplane-test", data_dir=tmp_path)
+    # a DeepIM name resolves to its reader, which reads its object list from
+    # `<data_dir>/modelnet`: absent here, in both packages alike
+    for cfg in (tcfg, jcfg):
+        with pytest.raises(FileNotFoundError, match="modelnet/model_set/airplane_test.txt"):
+            cfg.make_scene_dataset("deepim.modelnet-airplane-test", data_dir=tmp_path)
     # a shard directory resolves as in JAX (`webdataset.<dir>`)
     from happypose_tpu_torch.datasets.web_scene_dataset import (
         WebSceneDataset,

@@ -21,6 +21,7 @@ from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDat
 from happypose_tpu_torch.multiview.bundle_adjustment import MultiviewRefinement
 from happypose_tpu_torch.multiview.scene_predictor import MultiviewScenePredictor
 from happypose_tpu_torch.utils.load_model import load_detector, load_named_model
+from happypose_tpu_torch.utils.resources import get_device_memory, log_memory
 
 ENTRY_POINTS = {
     "BatchedSceneRecorder": BatchedSceneRecorder,
@@ -34,6 +35,8 @@ ENTRY_POINTS = {
     "MeshDataBase.render_assets": MeshDataBase.render_assets,
     "MultiviewScenePredictor": MultiviewScenePredictor,
     "MultiviewRefinement": MultiviewRefinement,
+    "get_device_memory": get_device_memory,
+    "log_memory": log_memory,
 }
 
 
@@ -165,6 +168,16 @@ def test_multiview_fails_where_there_is_no_card():
                             K=np.eye(3)[None], meshes=meshes)
 
 
+def test_device_memory_fails_where_there_is_no_card():
+    """`get_device_memory()` asks PyTorch for the card: where there is none,
+    PyTorch's own error; a CPU device reports nothing (zeros)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda|NVIDIA"):
+        get_device_memory()
+    assert set(get_device_memory("cpu").values()) == {0.0}
+
+
 def test_runner_and_timer_default_to_the_card():
     from happypose_tpu_torch.evaluation.prediction_runner import PredictionRunner
     from happypose_tpu_torch.utils.timer import DeviceTimer
@@ -176,7 +189,7 @@ def test_runner_and_timer_default_to_the_card():
 CLIS = ["run_eval", "run_full_eval", "run_detection_eval", "run_inference_on_example",
         "run_pose_training", "eval_refiner_checkpoint", "eval_coarse_checkpoint",
         "record_synthetic_dataset", "run_detector_training", "run_multiview_eval",
-        "run_custom_scenario"]
+        "run_custom_scenario", "run_accuracy_demo"]
 
 
 @pytest.mark.parametrize("script", CLIS)
@@ -190,7 +203,8 @@ def test_cli_device_defaults_to_the_card(script):
                                     "run_pose_training", "eval_refiner_checkpoint",
                                     "eval_coarse_checkpoint", "record_synthetic_dataset",
                                     "run_detector_training", "run_pose_training_from_data",
-                                    "run_multiview_eval", "run_custom_scenario"])
+                                    "run_multiview_eval", "run_custom_scenario",
+                                    "run_accuracy_demo"])
 def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
     """Without `--device cpu` a CLI asks PyTorch for the card: where there
     is none it fails with PyTorch's own error; it does not fall back. (Where
@@ -241,6 +255,8 @@ def test_cli_without_device_fails_where_there_is_no_card(script, tmp_path):
                                str(tmp_path / "models"), "--scenes-dir", str(tmp_path / "test")],
         # a scenario directory: models/, candidates.csv, scene_camera.json
         "run_custom_scenario": ["--scenario", str(tmp_path)],
+        "run_accuracy_demo": ["--refiner-dir", str(tmp_path / "refiner"), "--coarse-dir",
+                              str(tmp_path / "coarse"), "--n-scenes", "1"],
     }[script]
     from happypose_tpu_torch.evaluation.bop_export import save_bop_csv
 

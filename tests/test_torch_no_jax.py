@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
                  "training.detector_loss", "scripts.record_synthetic_dataset",
                  "scripts.run_detector_training", "multiview.ransac",
                  "multiview.bundle_adjustment", "multiview.scene_predictor", "utils.colmap_io",
-                 "scripts.run_multiview_eval", "scripts.run_custom_scenario"):
+                 "scripts.run_multiview_eval", "scripts.run_custom_scenario",
+                 "models.backbones", "utils.resources", "datasets.deepim_modelnet",
+                 "scripts.preprocess_object_dataset", "scripts.download",
+                 "scripts.run_accuracy_demo"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
