@@ -202,6 +202,17 @@ Phases (any failure raises, so the exit code is nonzero):
    and read back through `make_scene_dataset`; `preprocess_object_dataset`
    on the training set's meshes; `download` from a local mirror; the
    device's memory through `utils/resources.py`.
+38. The sharded paths on an NCCL process group of one rank (`make_mesh`),
+   each beside its unsharded call (median of 3 after a warm-up): megapose-RGB
+   with `PoseEstimator(device_mesh=...)` (coarse logits equal to the serial
+   path's, the same top-5 sets, 4 launches at B = 288 in the coarse stage
+   and the frame's count); `run_pose_training --dp` at phase 20's width (3
+   steps, one an epoch) against the run without (the first step's losses
+   and gradient norm; only rank 0 writes), then under `torchrun
+   --standalone --nproc-per-node 1`; `schur_sharded` bundle adjustment at
+   8 views x 15 objects against `schur` (one step's poses at lambda 1e4, the
+   solve's outcome); a render through the object-sharded `select` against
+   the whole database's (bit-equal).
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -2868,8 +2879,10 @@ def phase_large_ba(dev, scene: Path) -> dict:
             if lambd == BA_STEP_LAMBDA:
                 assert d_pose <= BA_STEP_ATOL, d_pose
         if solver == "schur":
-            card = ref._cand_blocks(params, target, 25.0)
-            host = cpu._cand_blocks(params.cpu(), target.cpu(), 25.0)
+            card = ref._cand_blocks(params, target, ref.o_idx, ref.v_idx, ref.cand_points,
+                                    ref.cand_weight, 25.0)
+            host = cpu._cand_blocks(params.cpu(), target.cpu(), cpu.o_idx, cpu.v_idx,
+                                    cpu.cand_points, cpu.cand_weight, 25.0)
             rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(card, host))
             log(f"BA Schur blocks card vs cpu: max diff {rel:.3g} of the largest entry")
             assert rel <= BA_BLOCKS_REL
@@ -3158,6 +3171,223 @@ def phase_host_tools(dev, root: Path) -> None:
     log(f"host tools: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------- the sharded paths (world size 1)
+
+SHARD_LOGIT_REL = 1e-5  # coarse logits, sharded vs serial, of the largest |logit|
+# `run_pose_training --dp` against the run without, on the first step (the same parameters,
+# batch and draws): the first iteration's loss to DP_ITER1_RTOL (the same renders; the synced
+# BatchNorm merges its statistics in another order than cuDNN's), the step's loss and
+# gradient norm to DP_LOSS_RTOL / DP_GRAD_NORM_RTOL: iterations 2 and 3 render poses that
+# differ in the last bits, which can move an edge pixel (as `CUT_STATS_RTOL`), and cuDNN's
+# backward sums in an order of its own (`CUT_HEAD_REL`)
+DP_ITER1_RTOL = 1e-5
+DP_LOSS_RTOL = 1e-3
+DP_GRAD_NORM_RTOL = 1e-3
+DP_STEPS = 3  # steps of `run_pose_training` with and without --dp, one an epoch
+
+
+def _median_timed(fn, n=3):
+    """Host seconds of `n` synchronized calls of `fn` after one warm-up call."""
+    _timed(fn)
+    return [_timed(fn)[1] for _ in range(n)]
+
+
+def phase_sharded(dev, root: Path, scene: Path) -> dict:
+    """The sharded paths on an NCCL process group of one rank, made by
+    `make_mesh` (`init_distributed_mode` joins nothing at WORLD_SIZE 1), at
+    full width, each beside its unsharded counterpart:
+    (a) megapose-RGB with `PoseEstimator(device_mesh=...)`: the coarse
+    logits equal the serial path's, the top-5 sets are the same, 4 launches
+    at B = 288 in the coarse stage and the whole frame's count;
+    (b) `run_pose_training --dp` at phase 20's width (480x640, B = 16, 3
+    iterations, ResNet34 refiner, 3 steps) against the same run without
+    `--dp`: loss and gradient norm; only rank 0 writes; then the same under
+    `torchrun --standalone --nproc-per-node 1`;
+    (c) `schur_sharded` bundle adjustment of the 8 x 15 scene against
+    `schur`: one LM step's poses and the solve's outcome;
+    (d) a render through the object-sharded `select` against the whole
+    database's. Times are medians of 3 after a warm-up, on the host clock
+    around synchronized calls."""
+    import os
+
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset
+    from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
+    from happypose_tpu_torch.lib3d.transforms import T_to_pose9d, pose9d_to_T
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.parallel import make_mesh
+    from happypose_tpu_torch.parallel.mesh import pad_objects_to_multiple, shard_objects
+    from happypose_tpu_torch.scripts import run_pose_training
+
+    import torch.distributed as dist
+
+    card = card_line()
+    mesh = make_mesh((1,), ("hp",))
+    log(f"sharded: process group {dist.get_backend()} of {dist.get_world_size()} rank(s), "
+        f"mesh {mesh}; {card}")
+    assert dist.get_backend() == {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    launches, figures = {}, {}
+
+    # (a) megapose-RGB, coarse hypotheses split over the mesh axis
+    db = debug_mesh_db(MeshDataBase, io)
+    obs, det = _synthetic_frame(db, dev)
+    est = _load("megapose-RGB", db, dev)
+    sharded = PoseEstimator(est.refiner_model, est.coarse_model, est.assets, est.meshes, est.cfg,
+                            device_mesh=mesh, mesh_axis="hp")
+    D, M = det.n_rows, est.SO3_grid.shape[0]
+    sharded.forward_coarse(obs, det)
+    torch.cuda.synchronize()
+    rf.launches = 0
+    coarse_sh = sharded.forward_coarse(obs, det)
+    torch.cuda.synchronize()
+    launches["megapose-RGB sharded coarse stage (world 1)"] = n_coarse = rf.launches
+    coarse = est.forward_coarse(obs, det)
+    expected = math.ceil(M * D / est.cfg.bsz_images)
+    a, b = coarse_sh.coarse_logits, coarse.coarse_logits
+    d_logit = ((a - b).abs().max() / b.abs().max()).item()
+    top_sh = a.reshape(D, M).topk(est.cfg.n_pose_hypotheses, dim=1).indices.sort(dim=1).values
+    top = b.reshape(D, M).topk(est.cfg.n_pose_hypotheses, dim=1).indices.sort(dim=1).values
+    log(f"sharded megapose-RGB coarse: {n_coarse} launches at B = {est.cfg.bsz_images} "
+        f"(expected {expected}), logits sharded vs serial max diff {d_logit:.3g} of the largest "
+        f"(bit-equal: {torch.equal(a, b)}), top-{est.cfg.n_pose_hypotheses} sets equal: "
+        f"{torch.equal(top_sh, top)}")
+    assert n_coarse == expected and d_logit <= SHARD_LOGIT_REL and torch.equal(top_sh, top)
+    rf.launches = 0
+    res = sharded.run_inference_pipeline(obs, det)
+    torch.cuda.synchronize()
+    launches["megapose-RGB sharded frame (world 1)"] = n_frame = rf.launches
+    assert n_frame == _megapose_launches(est, D), n_frame
+    final = res["final"]
+    assert torch.isfinite(final.poses).all() and int(final.valid.sum()) == D
+    t_sh = _median_timed(lambda: sharded.forward_coarse(obs, det))
+    t_serial = _median_timed(lambda: est.forward_coarse(obs, det))
+    f_sh = _median_timed(lambda: sharded.run_inference_pipeline(obs, det))
+    f_serial = _median_timed(lambda: est.run_inference_pipeline(obs, det))
+    figures["megapose_coarse_s"] = {"sharded": t_sh, "serial": t_serial}
+    figures["megapose_frame_s"] = {"sharded": f_sh, "serial": f_serial}
+    log(f"sharded megapose-RGB ({card}): coarse stage s {_fmt(t_sh)} vs serial {_fmt(t_serial)}; "
+        f"frame s/image {_fmt(f_sh)} vs serial {_fmt(f_serial)}; frame launches {n_frame}")
+    del est, sharded
+
+    # (b) run_pose_training --dp at phase 20's width, one step an epoch: the
+    # log's first line is the first step's, taken from the same parameters
+    runs = root / "dp_runs"
+    common = ["--backbone", "resnet34", "--data", "synth", "--synth-set", "textured",
+              "--epochs", str(DP_STEPS), "--epoch-size", str(TRAIN_BATCH["refiner"]),
+              "--batch-size", str(TRAIN_BATCH["refiner"]), "--n-iterations",
+              str(REFINER_ITERATIONS), "--render-size", *map(str, RES),
+              "--image-size", *map(str, FRAME_RES), "--device", str(dev)]
+    logs, seconds = {}, {}
+    for name, extra in (("single", []), ("dp", ["--dp"])):
+        rf.launches = 0
+        rc, seconds[name] = _timed(lambda: run_pose_training.main(
+            ["--run-dir", str(runs / name)] + common + extra))
+        launches[f"run_pose_training {name} ({DP_STEPS} steps)"] = rf.launches
+        assert rc == 0 and rf.launches == DP_STEPS * (1 + REFINER_ITERATIONS), rf.launches
+        logs[name] = [json.loads(x) for x in (runs / name / "log.txt").read_text().splitlines()]
+        assert len(logs[name]) == DP_STEPS
+        assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in logs[name])
+    assert dist.is_initialized(), "run_pose_training destroyed a group it did not make"
+    first = {k: logs[k][0] for k in logs}
+    d_loss = abs(first["dp"]["loss"] - first["single"]["loss"]) / abs(first["single"]["loss"])
+    d_gn = abs(first["dp"]["grad_norm"] - first["single"]["grad_norm"]) / first["single"]["grad_norm"]
+    it1 = "loss_TCO_iter1"
+    d_it1 = abs(first["dp"][it1] - first["single"][it1]) / abs(first["single"][it1])
+    written = sorted(x.name for x in (runs / "dp").iterdir())
+    step_s = {k: [x["time"] for x in logs[k][1:]] for k in logs}  # the first step warms up
+    figures["dp_train_s_per_step"] = step_s
+    log(f"run_pose_training --dp ({card}): s/step {_fmt(step_s['dp'])} vs without "
+        f"{_fmt(step_s['single'])} (steps 2-{DP_STEPS}); whole runs {seconds['dp']:.2f} s vs "
+        f"{seconds['single']:.2f} s; first step: iteration 1's loss rel diff {d_it1:.3g}, loss "
+        f"{first['dp']['loss']:.6f} vs "
+        f"{first['single']['loss']:.6f} (rel {d_loss:.3g}), grad_norm {first['dp']['grad_norm']:.5f} "
+        f"vs {first['single']['grad_norm']:.5f} (rel {d_gn:.3g}); later steps' losses "
+        f"{[round(x['loss'], 6) for x in logs['dp'][1:]]} vs "
+        f"{[round(x['loss'], 6) for x in logs['single'][1:]]} (after Adam's first steps, about "
+        f"lr x sign(g), not compared); rank 0 wrote {written}")
+    assert d_it1 <= DP_ITER1_RTOL and d_loss <= DP_LOSS_RTOL and d_gn <= DP_GRAD_NORM_RTOL
+    assert "state_dict.pt" in written
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "happypose_tpu_torch.scripts.run_pose_training", "--run-dir",
+         str(runs / "torchrun"), "--dp"] + common + ["--epochs", "1"], capture_output=True,
+        text=True, env=env,
+        cwd=str(ROOT), timeout=300)
+    t_torchrun = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    tr_log = json.loads((runs / "torchrun" / "log.txt").read_text().splitlines()[0])
+    d_tr = abs(tr_log["loss"] - first["single"]["loss"]) / abs(first["single"]["loss"])
+    log(f"torchrun --standalone --nproc-per-node 1 run_pose_training --dp: {t_torchrun:.1f} s "
+        f"(process start included), first step loss {tr_log['loss']:.6f} (rel {d_tr:.3g} of the "
+        "run without --dp)")
+    assert d_tr <= DP_LOSS_RTOL
+
+    # (c) schur_sharded bundle adjustment at 8 views x 15 objects
+    big = _large_scene()
+    models = BOPObjectDataset(scene / "models").mesh_db.batched(n_points=64, device=dev)
+    pairs = [(v, v + 1) for v in range(BA_VIEWS - 1)]
+    TWC = big["TWC"]
+    TC1C2 = np.stack([np.linalg.inv(TWC[a]) @ TWC[b] for a, b in pairs]).astype(np.float32)
+    ba_mesh = make_mesh((1,), ("ba",))
+    schur = _ba_refiner(big, models, "schur", dev)
+    sh = dataclasses.replace(schur, solver="schur_sharded", device_mesh=ba_mesh)
+    TCW = torch.as_tensor(np.linalg.inv(TWC), dtype=torch.float32, device=dev)
+    TWO = torch.as_tensor(big["TWO"], dtype=torch.float32, device=dev)
+    params = torch.cat([T_to_pose9d(TWO).reshape(-1), T_to_pose9d(TCW).reshape(-1)])
+    target = schur._align_targets(*schur._split(params))
+    for lambd in (1e-3, BA_STEP_LAMBDA):
+        p_a, l_a = schur._lm_step_schur(params, target, lambd, 25.0)
+        p_b, l_b = sh._lm_step_schur_sharded(params, target, lambd, 25.0)
+        d_pose = (pose9d_to_T(p_a.reshape(-1, 9)) - pose9d_to_T(p_b.reshape(-1, 9))).abs().max().item()
+        d_loss = abs(float(l_a) - float(l_b)) / abs(float(l_a))
+        log(f"schur_sharded vs schur, one LM step at lambda {lambd:g}: poses max diff {d_pose:.3g}, "
+            f"loss rel diff {d_loss:.3g}")
+        assert d_loss <= 1e-5
+        if lambd == BA_STEP_LAMBDA:
+            assert d_pose <= BA_STEP_ATOL, d_pose
+    s_step = {name: _median_timed(lambda: fn(params, target, 1e-3, 25.0))
+              for name, fn in (("schur_sharded", sh._lm_step_schur_sharded),
+                               ("schur", schur._lm_step_schur))}
+    out_sh, t_solve_sh = _timed(lambda: sh.solve(pairs, TC1C2, n_iterations=BA_ITERATIONS))
+    out, t_solve = _timed(lambda: schur.solve(pairs, TC1C2, n_iterations=BA_ITERATIONS))
+    d_fused = max(np.abs(out_sh[k] - out[k]).max() for k in ("TWO", "TWC"))
+    figures["ba_step_s"] = s_step
+    figures["ba_solve_s"] = {"schur_sharded": t_solve_sh, "schur": t_solve}
+    log(f"schur_sharded at {BA_VIEWS} x {BA_OBJECTS} ({card}): s/LM step {_fmt(s_step['schur_sharded'])} "
+        f"vs schur {_fmt(s_step['schur'])}; {BA_ITERATIONS} iterations {t_solve_sh:.3f} s vs "
+        f"{t_solve:.3f} s; loss {out_sh['loss']:.6f} vs {out['loss']:.6f}, poses max diff {d_fused:.3g}")
+    assert abs(out_sh["loss"] - out["loss"]) <= 1e-5 * abs(out["loss"]) and d_fused <= BA_STEP_ATOL
+
+    # (d) object-sharded assets: the render through the sharded select
+    assets = db.render_assets(device=dev)
+    sharded_assets = shard_objects(pad_objects_to_multiple(assets, 1), mesh, "hp")
+    B = BATCHES[0]
+    ids = (torch.arange(B) % len(db.labels)).to(dev)
+    TCO = random_poses(B, seed=B).to(dev)
+    K = torch.tensor([[600.0, 0, RES[1] / 2], [0, 600.0, RES[0] / 2], [0, 0, 1]],
+                     device=dev).expand(B, 3, 3)
+    rf.launches = 0
+    out_sh = rf.render_batch_fused(sharded_assets, ids, TCO, K, resolution=RES)
+    torch.cuda.synchronize()
+    launches["render through the object-sharded select (world 1)"] = rf.launches
+    out = rf.render_batch_fused(assets, ids, TCO, K, resolution=RES)
+    equal = all(torch.equal(getattr(out_sh, k), getattr(out, k)) for k in ("rgb", "depth", "mask", "normals"))
+    t_r_sh = _median_timed(lambda: rf.render_batch_fused(sharded_assets, ids, TCO, K, resolution=RES))
+    t_r = _median_timed(lambda: rf.render_batch_fused(assets, ids, TCO, K, resolution=RES))
+    figures["render_s"] = {"sharded": t_r_sh, "whole": t_r}
+    log(f"object-sharded render, B = {B} at {RES[0]}x{RES[1]} ({card}): {_fmt(t_r_sh)} s vs the "
+        f"whole database {_fmt(t_r)} s; outputs bit-equal: {equal}")
+    assert equal and launches["render through the object-sharded select (world 1)"] == 1
+    dist.destroy_process_group()
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -3233,6 +3463,9 @@ def main() -> None:
         timed_phase(37, phase_host_tools, dev, root)
         log(f"backbone and tool phases 35-37: {sum(seconds.values()):.1f} s (by phase {seconds}); "
             "figures: " + json.dumps({"training": bb_figures, "serving": serving["figures"]}))
+        sharded = timed_phase(38, phase_sharded, dev, root, mv["scene"])
+        launches.update(sharded["launches"])
+        log(f"sharded phase 38: {seconds[38]:.1f} s; figures: " + json.dumps(sharded["figures"]))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",

@@ -13,7 +13,7 @@ a `torch.Generator` on the device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,16 @@ def to_images(frames: torch.Tensor) -> torch.Tensor:
     return frames.permute(0, 3, 1, 2).to(torch.float32) / 255.0
 
 
+def rank_slice(batch_size: int, rank_block: Tuple[int, int]) -> slice:
+    """The rows of a global batch that rank `rank_block[0]` of
+    `rank_block[1]` makes: its contiguous block."""
+    rank, world = rank_block
+    if batch_size % world:
+        raise ValueError(f"batch size {batch_size} does not divide by {world} ranks")
+    n = batch_size // world
+    return slice(rank * n, (rank + 1) * n)
+
+
 @dataclass
 class PoseDataset:
     """An infinite, shuffled iterator of `PoseTrainingBatch`es on `device`.
@@ -67,7 +77,11 @@ class PoseDataset:
     `device_cache` stages the split's uint8 frames on the device once and
     gathers each batch there by index (a split of 4096 frames at 240x320
     takes 0.9 GB); it needs frames of one shape and uint8, and otherwise
-    reads from the host as without it."""
+    reads from the host as without it.
+
+    `rank_block` = (rank, world) makes this process's contiguous block of
+    each global batch of `batch_size` (data-parallel training): every rank
+    draws the same picks and jitter and stages only its block's frames."""
 
     scene_ds: object  # BOPSceneDataset, WebSceneDataset: len() and [i] -> SceneObservation
     mesh_db: MeshDataBase
@@ -80,6 +94,7 @@ class PoseDataset:
     seed: int = 0
     device_cache: bool = False
     device: str = "cuda"
+    rank_block: Tuple[int, int] = (0, 1)
 
     def _build_device_cache(self) -> Optional[torch.Tensor]:
         """[N, H, W, 3] uint8 tensor of every frame on the device, or None
@@ -99,6 +114,7 @@ class PoseDataset:
         generator = torch.Generator(device=dev).manual_seed(self.seed)
         n = len(self.scene_ds)
         frames_dev = self._build_device_cache() if self.device_cache else None
+        block = rank_slice(self.batch_size, self.rank_block)
         while True:
             images, frame_idx, Ks, ids, TCOs = [], [], [], [], []
             while len(Ks) < self.batch_size:
@@ -116,6 +132,8 @@ class PoseDataset:
                 Ks.append(obs.K)
                 ids.append(self.mesh_db.id_of(obs.obj_labels[j]))
                 TCOs.append(obs.TWO[j])
+            images, frame_idx, Ks, ids, TCOs = (
+                x[block] for x in (images, frame_idx, Ks, ids, TCOs))
             if frames_dev is None:
                 frames = torch.from_numpy(np.stack(images)).to(dev)
             else:  # gather on the device: a batch's indices cross, not its images
@@ -123,7 +141,8 @@ class PoseDataset:
             imgs, K = crop_resize_to_aspect(
                 to_images(frames), torch.from_numpy(np.stack(Ks)).to(dev), self.resolution)
             if self.apply_rgb_augmentation:
-                imgs = rgb_jitter(imgs, sample_rgb_jitter(generator, self.batch_size))
+                jitter = sample_rgb_jitter(generator, self.batch_size)
+                imgs = rgb_jitter(imgs, {k: v[block] for k, v in jitter.items()})
             yield PoseTrainingBatch(
                 images=imgs,
                 K=K,

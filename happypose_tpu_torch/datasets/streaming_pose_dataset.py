@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from happypose_tpu_torch.datasets.augmentations import (
     rgb_jitter,
     sample_rgb_jitter,
 )
-from happypose_tpu_torch.datasets.pose_dataset import to_images, valid_objects
+from happypose_tpu_torch.datasets.pose_dataset import rank_slice, to_images, valid_objects
 from happypose_tpu_torch.datasets.web_scene_dataset import IterableWebSceneDataset
 from happypose_tpu_torch.meshes.database import MeshDataBase
 from happypose_tpu_torch.training.forward_loss import PoseTrainingBatch
@@ -69,6 +69,7 @@ class StreamingPoseDataset:
     apply_rgb_augmentation: bool = True
     seed: int = 0
     device: str = "cuda"
+    rank_block: Tuple[int, int] = (0, 1)  # (rank, world): this process's block of a batch
     _chunks: Optional[PrefetchIterator] = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -111,6 +112,7 @@ class StreamingPoseDataset:
         dev = torch.device(self.device)
         rng = np.random.RandomState(self.seed + 1)
         generator = torch.Generator(device=dev).manual_seed(self.seed)
+        block = rank_slice(self.batch_size, self.rank_block)
         self._chunks = chunks = PrefetchIterator(self.decode_chunks(), self.prefetch_chunks)
         try:
             for chunk in chunks:
@@ -118,13 +120,14 @@ class StreamingPoseDataset:
                 S = len(chunk.sample_frame)
                 n_batches = max(1, int(self.samples_per_chunk_pass * S) // self.batch_size)
                 for _ in range(n_batches):
-                    sel = rng.randint(S, size=self.batch_size)
+                    sel = rng.randint(S, size=self.batch_size)[block]
                     frames = frames_dev[torch.from_numpy(chunk.sample_frame[sel]).to(dev)]
                     imgs, K = crop_resize_to_aspect(
                         to_images(frames), torch.from_numpy(chunk.sample_K[sel]).to(dev),
                         self.resolution)
                     if self.apply_rgb_augmentation:
-                        imgs = rgb_jitter(imgs, sample_rgb_jitter(generator, self.batch_size))
+                        jitter = sample_rgb_jitter(generator, self.batch_size)
+                        imgs = rgb_jitter(imgs, {k: v[block] for k, v in jitter.items()})
                     yield PoseTrainingBatch(
                         images=imgs,
                         K=K,

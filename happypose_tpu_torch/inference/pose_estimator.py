@@ -15,7 +15,10 @@ poses of either flavour are then refined against the observed depth
 
 The hypothesis axis is cut into chunks of `bsz_images` (coarse scoring)
 and `bsz_objects` (pose updates); each chunk is one model call and one
-render batch per iteration.
+render batch per iteration. With a `device_mesh`, the coarse hypotheses
+are split over the ranks of its `mesh_axis`: each rank scores its block,
+in chunks of `bsz_images`, and the logits are gathered on every rank;
+every later stage runs on every rank, as JAX's does.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
 from happypose_tpu_torch.models.pose_predictor import PosePredictor
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
+from happypose_tpu_torch.parallel.collectives import sharded_batch_apply
 
 
 def _model_images(model: PosePredictor, obs: ObservationBatch) -> torch.Tensor:
@@ -57,7 +61,8 @@ class PoseEstimator:
     PosePredictor (`predict_rendered_views_logits`: MegaPose), a pose-update
     PosePredictor (CosyPose) or None (CosyPose without a coarse model);
     assets / meshes: the padded mesh database on the device the pipeline
-    runs on.
+    runs on; device_mesh: a `DeviceMesh` (`parallel.make_mesh`) whose
+    `mesh_axis` splits the coarse hypotheses over its ranks, or None.
     """
 
     def __init__(
@@ -67,6 +72,8 @@ class PoseEstimator:
         assets: RenderAssets,
         meshes: BatchedMeshes,
         cfg: InferenceConfig = InferenceConfig(),
+        device_mesh=None,
+        mesh_axis: str = "hp",
     ):
         self.refiner_model = refiner
         self.coarse_model = coarse
@@ -76,6 +83,8 @@ class PoseEstimator:
         self.assets = assets
         self.meshes = meshes
         self.cfg = cfg
+        self.device_mesh = device_mesh
+        self.mesh_axis = mesh_axis
         self.SO3_grid = torch.from_numpy(load_SO3_grid(cfg.SO3_grid_size)).to(
             assets.vertices.device
         )
@@ -123,17 +132,33 @@ class PoseEstimator:
         )
 
     def _score_hypotheses(self, obs, K, obj_ids, im_ids, TCO) -> torch.Tensor:
-        """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a time."""
+        """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a
+        time (split over the mesh axis's ranks with a `device_mesh`)."""
         images = _model_images(self.coarse_model, obs)
-        logits = []
-        for s in range(0, TCO.shape[0], self.cfg.bsz_images):
-            sl = slice(s, s + self.cfg.bsz_images)
-            out = self.coarse_model(
-                images[im_ids[sl]], K[sl], obj_ids[sl], TCO[sl], self.assets,
-                self.meshes.select(obj_ids[sl]), n_iterations=1,
-            )
-            logits.append(out.renderings_logits[0, :, 0])
-        return torch.cat(logits)
+
+        def score(batch):
+            Kb, ob, ib, Tb = batch
+            logits = []
+            for s in range(0, Tb.shape[0], self.cfg.bsz_images):
+                sl = slice(s, s + self.cfg.bsz_images)
+                out = self.coarse_model(
+                    images[ib[sl]], Kb[sl], ob[sl], Tb[sl], self.assets,
+                    self.meshes.select(ob[sl]), n_iterations=1,
+                )
+                logits.append(out.renderings_logits[0, :, 0])
+            return torch.cat(logits)
+
+        batch = (K, obj_ids, im_ids, TCO)
+        if self.device_mesh is None:
+            return score(batch)
+        mesh = self.device_mesh
+        N, size = TCO.shape[0], mesh.size(mesh.mesh_dim_names.index(self.mesh_axis))
+        # pad to a multiple of the axis size with copies of the last
+        # hypothesis (JAX pads zeros; a zero pose would put every vertex at
+        # z = 0 in the render), and cut the padded rows' logits off
+        pad = -N % size
+        batch = tuple(torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) for x in batch)
+        return sharded_batch_apply(score, mesh, self.mesh_axis)(batch)[:N]
 
     # ------------------------------------------------------------------
     # Refiner

@@ -34,6 +34,11 @@ def project_points_robust(
     return suv[..., :2] / torch.clamp(suv[..., 2:3], min=z_min)
 
 
+def boxes_from_uv(uv: torch.Tensor) -> torch.Tensor:
+    """Tight (xmin, ymin, xmax, ymax) boxes [B, 4] over uv [B, P, 2]."""
+    return torch.cat([uv.amin(dim=1), uv.amax(dim=1)], dim=-1)
+
+
 def masked_boxes_from_uv(uv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(xmin, ymin, xmax, ymax) over the valid points of uv [B, P, 2];
     mask [B, P] bool."""
@@ -73,3 +78,16 @@ def get_K_crop_resize(
     return torch.stack(
         [fx, zeros, cx, zeros, fy, cy, zeros, zeros, ones], dim=-1
     ).reshape(-1, 3, 3)
+
+
+def cropresize_backtransform_points2d(
+    input_wh: torch.Tensor,
+    boxes_2d_crop: torch.Tensor,
+    output_wh: torch.Tensor,
+    points_2d_in_output: torch.Tensor,
+) -> torch.Tensor:
+    """Map points [B, P, 2] of a resized crop back to source-image pixels:
+    crop boxes [B, 4], crop sizes `input_wh` [B, 2], resized sizes
+    `output_wh` [B, 2]."""
+    points_norm = points_2d_in_output / output_wh[:, None, :]
+    return boxes_2d_crop[:, None, 0:2] + points_norm * input_wh[:, None, :]

@@ -27,3 +27,10 @@ def pose_update_with_reference_point(
     tCR_out = torch.cat([tCR_out_xy, ztgt], dim=-1)
     tCO_out = (dRCO @ (TCO[:, :3, 3] - tCR)[..., None])[..., 0] + tCR_out
     return make_T(dRCO @ TCO[:, :3, :3], tCO_out)
+
+
+def apply_imagespace_predictions(
+    TCO: torch.Tensor, K: torch.Tensor, vxvyvz: torch.Tensor, dRCO: torch.Tensor
+) -> torch.Tensor:
+    """The CosyPose update: the anchor is the object origin (tCR = tCO)."""
+    return pose_update_with_reference_point(TCO, K, vxvyvz, dRCO, TCO[:, :3, 3])

@@ -66,9 +66,32 @@ def load_qua_grid(resolution: int) -> np.ndarray:
     return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def load_SO3_grid(resolution: int = 576) -> np.ndarray:
-    """Rotation-matrix grid [N, 3, 3]: the shipped `.qua` grid when one
-    exists for `resolution`, else a super-Fibonacci grid of that size."""
-    if resolution in _QUA_SIZES:
-        return quats_to_rotmats(load_qua_grid(resolution))
-    return quats_to_rotmats(super_fibonacci_quats(resolution))
+@lru_cache(maxsize=None)
+def load_SO3_quats(resolution: int = 576, source: str = "auto") -> np.ndarray:
+    """xyzw quaternion grid [N, 4]. `source`: "auto" (the shipped `.qua`
+    grid when one exists for `resolution`, else generated), "qua" (the file
+    must exist) or "super_fibonacci" (any size)."""
+    if source == "auto":
+        source = "qua" if resolution in _QUA_SIZES else "super_fibonacci"
+    if source == "qua":
+        return load_qua_grid(resolution)
+    if source == "super_fibonacci":
+        return super_fibonacci_quats(resolution)
+    raise ValueError(f"unknown SO(3) grid source: {source}")
+
+
+def load_SO3_grid(resolution: int = 576, source: str = "auto") -> np.ndarray:
+    """Rotation-matrix grid [N, 3, 3]; see `load_SO3_quats`."""
+    return quats_to_rotmats(load_SO3_quats(resolution, source))
+
+
+def covering_radius(grid_q: np.ndarray, n_probes: int = 4096, seed: int = 0) -> float:
+    """Monte-Carlo covering radius (radians): the largest geodesic distance
+    from `n_probes` random rotations to their nearest grid rotation."""
+    rs = np.random.RandomState(seed)
+    p = rs.randn(n_probes, 4)
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    g = grid_q / np.linalg.norm(grid_q, axis=-1, keepdims=True)
+    # geodesic distance = 2 arccos |<q1, q2>|
+    best = np.clip(np.abs(p @ g.T).max(axis=1), -1.0, 1.0)
+    return float(np.max(2.0 * np.arccos(best)))

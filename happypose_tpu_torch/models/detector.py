@@ -13,14 +13,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from happypose_tpu_torch.models.backbones import _bn
+from happypose_tpu_torch.models.backbones import _bn, set_bn_axis_name
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 _CLS_PRIOR_BIAS = -4.6  # focal-loss prior: sigmoid(-4.6) ~ 0.01
@@ -105,6 +105,9 @@ class DetectorConfig:
     fpn_channels: int = 256
     head_depth: int = 2
     strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    compute_dtype: str = "float32"  # float32 | bfloat16 (the whole network; outputs float32)
+    # the mesh axis whose ranks share the BatchNorm statistics in train mode
+    bn_axis_name: Optional[str] = None
 
 
 class DetectorOutputs(NamedTuple):
@@ -137,6 +140,7 @@ class FCOSDetector(nn.Module):
         self.proto = nn.ModuleList([nn.Conv2d(c, c // 2, 3, padding=1),
                                     nn.Conv2d(c // 2, c // 2, 3, padding=1)])
         self.proto_out = nn.Conv2d(c // 2, cfg.n_prototypes, 1)
+        set_bn_axis_name(self.backbone, cfg.bn_axis_name)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "FCOSDetector":
@@ -156,7 +160,17 @@ class FCOSDetector(nn.Module):
         return self
 
     def forward(self, images: torch.Tensor) -> DetectorOutputs:
-        """images: [B, 3, H, W] in [0, 1]."""
+        """images: [B, 3, H, W] in [0, 1]. With `compute_dtype="bfloat16"`
+        the network runs under bfloat16 autocast (the parameters stay
+        float32, as Flax's `dtype=` keeps them) and the outputs come back
+        in float32, as the JAX package casts them."""
+        if self.cfg.compute_dtype != "bfloat16":
+            return self._forward(images)
+        with torch.autocast(device_type=images.device.type, dtype=torch.bfloat16):
+            out = self._forward(images)
+        return DetectorOutputs(*(x.float() if x.is_floating_point() else x for x in out))
+
+    def _forward(self, images: torch.Tensor) -> DetectorOutputs:
         pyramid, _ = self.backbone(images)
         all_cls, all_box, all_ctr, all_coef, all_loc, all_lvl = [], [], [], [], [], []
         for lvl, (p, stride) in enumerate(zip(pyramid, self.cfg.strides)):
@@ -171,8 +185,8 @@ class FCOSDetector(nn.Module):
             all_ctr.append(_flat(self.ctr_head(b))[..., 0])
             all_coef.append(_flat(torch.tanh(self.coef_head(c))))
             Hl, Wl = p.shape[-2:]
-            uu = (torch.arange(Wl, device=p.device, dtype=p.dtype) + 0.5) * stride
-            vv = (torch.arange(Hl, device=p.device, dtype=p.dtype) + 0.5) * stride
+            uu = (torch.arange(Wl, device=p.device, dtype=torch.float32) + 0.5) * stride
+            vv = (torch.arange(Hl, device=p.device, dtype=torch.float32) + 0.5) * stride
             all_loc.append(torch.stack([uu.repeat(Hl), vv.repeat_interleave(Wl)], dim=-1))
             all_lvl.append(torch.full((Hl * Wl,), lvl, dtype=torch.int64, device=p.device))
 

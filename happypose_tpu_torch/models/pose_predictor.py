@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,6 +47,7 @@ from happypose_tpu_torch.lib3d.transforms import make_T, normalize_T
 from happypose_tpu_torch.meshes.database import BatchedMeshes, RenderAssets
 from happypose_tpu_torch.models.backbones import (
     EfficientNetB3,
+    set_bn_axis_name,
     FlowNetS,
     ResNet34,
     WideResNet18,
@@ -91,6 +92,9 @@ class PosePredictorConfig:
     pose_head: str = "ortho6d"
     crop_lamb: float = 1.4
     compute_dtype: str = "float32"  # float32 | bfloat16 (the backbone and the crop)
+    # the mesh axis whose ranks share the backbone's BatchNorm statistics in
+    # train mode (the data-parallel step binds its group); None: this rank's
+    bn_axis_name: Optional[str] = None
 
     @property
     def n_views(self) -> int:
@@ -128,6 +132,7 @@ class PosePredictor(nn.Module):
         self.backbone = _BACKBONES[cfg.backbone](
             n_inputs=3 + (1 if cfg.input_depth else 0) + cfg.n_views * cfg.n_render_channels
         )
+        set_bn_axis_name(self.backbone, cfg.bn_axis_name)
         n_features = self.backbone.n_features
         if cfg.predict_pose_update:
             self.pose_fc = nn.Linear(n_features, len(_IDENTITY_POSE[cfg.pose_head]))

@@ -12,10 +12,15 @@ the model poses against the candidate's symmetry-aligned pose, clipped at
   object blocks are eliminated through a truncated `eigh` pseudo-inverse
   and the reduced (9 n_views)^2 camera system is solved.
 
+- "schur_sharded": the same step with the candidates split over the ranks
+  of `device_mesh`'s first axis (zero-weight candidates pad them to a
+  multiple of its size). Each rank builds the blocks and the loss sum of
+  its candidates, one `all_reduce(SUM)` adds them up, and every rank solves
+  the small reduced camera system.
+
 The first camera is the gauge: its parameters never move. Each LM
 iteration reads its loss on the host to accept or reject the step, as the
-JAX package does. "schur_sharded" (the candidate axis over several devices)
-needs `torch.distributed` and is not ported yet.
+JAX package does.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch.func import jacfwd, vmap
 from happypose_tpu_torch.lib3d.camera import project_points
 from happypose_tpu_torch.lib3d.transforms import T_to_pose9d, pose9d_to_T
 from happypose_tpu_torch.meshes.database import BatchedMeshes
+from happypose_tpu_torch.parallel.mesh import shard_leading
 
 SOLVERS = ("dense", "schur", "schur_sharded")
 
@@ -96,8 +102,9 @@ class MultiviewRefinement:
       K: [n_views, 3, 3].
       meshes: padded mesh db; points used for residuals are subsampled to
         `n_points`.
-      solver: "dense" or "schur"; "schur_sharded" raises
-        `NotImplementedError`.
+      solver: "dense", "schur" or "schur_sharded" (needs `device_mesh`, a
+        `DeviceMesh` whose first axis splits the candidates; its device
+        type is `device`'s).
     """
 
     cand_TCO: np.ndarray
@@ -109,14 +116,13 @@ class MultiviewRefinement:
     n_points: int = 8
     solver: str = "dense"
     device: str = "cuda"
+    device_mesh: object = None
 
     def __post_init__(self):
         if self.solver not in SOLVERS:
             raise ValueError(f"solver {self.solver!r} is not one of {SOLVERS}")
-        if self.solver == "schur_sharded":
-            raise NotImplementedError(
-                "solver='schur_sharded' needs torch.distributed, not ported yet "
-                "(ROADMAP.md queue 1, item 9)")
+        if self.solver == "schur_sharded" and self.device_mesh is None:
+            raise ValueError("solver='schur_sharded' needs a device_mesh")
         dev = torch.device(self.device)
         self.n_views = int(self.K.shape[0])
         self.n_objects = int(np.max(self.cand_obj_idx)) + 1
@@ -137,6 +143,21 @@ class MultiviewRefinement:
         start = self.n_objects * 9
         idx = torch.arange(start + self.n_views * 9, device=dev)
         self.free = (idx < start) | (idx >= start + 9)
+        self.cand_weight = torch.ones(len(self.cand_view_idx), device=dev)
+        if self.solver == "schur_sharded":
+            mesh = self.device_mesh
+            axis = mesh.mesh_dim_names[0]
+            self._sh_group = mesh.get_group(axis)
+            # zero-weight candidates pad the axis to equal blocks; they add
+            # nothing to the block sums
+            self._sh_pad = -len(self.cand_view_idx) % mesh.size(0)
+
+            def pad(x):
+                return torch.cat([x, x.new_zeros((self._sh_pad,) + x.shape[1:])])
+
+            self._sh_o_idx, self._sh_v_idx, self._sh_points, self._sh_weight = shard_leading(
+                tuple(pad(x) for x in (self.o_idx, self.v_idx, self.cand_points,
+                                       self.cand_weight)), mesh, axis)
 
     def _split(self, params: torch.Tensor):
         n = self.n_objects * 9
@@ -209,30 +230,32 @@ class MultiviewRefinement:
         uv_target = project_points(pts[None], K[None], T_target[None])[0]
         return (uv_target - uv_model).reshape(-1)  # [p*2]
 
-    def _cand_blocks(self, params, T_target, residuals_threshold: float):
-        """Per-candidate JᵀJ / Jᵀe blocks, summed into the objects' and
-        cameras' blocks: U [n_obj, 9, 9], V [n_views, 9, 9], W [n_obj,
-        n_views, 9, 9], b_o [n_obj, 9], b_v [n_views, 9], and the clipped
-        loss summed over residuals."""
+    def _cand_blocks(self, params, T_target, o_idx, v_idx, pts, weight,
+                     residuals_threshold: float):
+        """JᵀJ / Jᵀe blocks of the candidates (`o_idx`, `v_idx`, points
+        `pts`, targets `T_target`), each weighted by `weight` (0 for a
+        padding candidate), summed into the objects' and cameras' blocks: U
+        [n_obj, 9, 9], V [n_views, 9, 9], W [n_obj, n_views, 9, 9], b_o
+        [n_obj, 9], b_v [n_views, 9], and the clipped loss summed over
+        residuals."""
         n_obj, n_views = self.n_objects, self.n_views
         two, tcw = self._split(params)
-        two_c, tcw_c = two[self.o_idx], tcw[self.v_idx]
-        Kc = self.K_t[self.v_idx]
-        args = (two_c, tcw_c, self.cand_points, Kc, T_target)
+        args = (two[o_idx], tcw[v_idx], pts, self.K_t[v_idx], T_target)
 
         f = self._cand_residual
         r = vmap(f)(*args)
         A = vmap(jacfwd(f, argnums=0))(*args)  # [c, m, 9]
         Bj = vmap(jacfwd(f, argnums=1))(*args)  # [c, m, 9]
-        e = torch.clamp(r, -residuals_threshold, residuals_threshold)
-        loss_sum = torch.sum(torch.clamp(r**2, max=residuals_threshold**2))
-        AtA = torch.einsum("cmi,cmj->cij", A, A)
-        BtB = torch.einsum("cmi,cmj->cij", Bj, Bj)
-        AtB = torch.einsum("cmi,cmj->cij", A, Bj)
+        e = torch.clamp(r, -residuals_threshold, residuals_threshold) * weight[:, None]
+        loss_sum = torch.sum(torch.clamp(r**2, max=residuals_threshold**2).sum(-1) * weight)
+        w2 = weight[:, None, None]
+        AtA = torch.einsum("cmi,cmj->cij", A, A) * w2
+        BtB = torch.einsum("cmi,cmj->cij", Bj, Bj) * w2
+        AtB = torch.einsum("cmi,cmj->cij", A, Bj) * w2
         Ate = torch.einsum("cmi,cm->ci", A, e)
         Bte = torch.einsum("cmi,cm->ci", Bj, e)
 
-        o, v = self.o_idx, self.v_idx
+        o, v = o_idx, v_idx
         U = AtA.new_zeros((n_obj, 9, 9)).index_add(0, o, AtA)
         V = BtB.new_zeros((n_views, 9, 9)).index_add(0, v, BtB)
         W = AtB.new_zeros((n_obj, n_views, 9, 9)).index_put((o, v), AtB, accumulate=True)
@@ -298,13 +321,38 @@ class MultiviewRefinement:
     def _n_residuals(self) -> float:
         return float(len(self.cand_view_idx) * self.cand_points.shape[1] * 2)
 
-    def _lm_step_schur(self, params, T_target, lambd: float, residuals_threshold: float):
-        """One Schur-complement LM step."""
-        U, V, W, b_o, b_v, loss_sum = self._cand_blocks(params, T_target, residuals_threshold)
-        h = self._schur_reduce_solve(U, V, W, b_o, b_v, lambd)
+    def _apply_step(self, params, h, loss_sum):
         # where, not multiply: a non-finite entry must not poison the gauge
         h = torch.where(self.free, h, torch.zeros_like(h))
         return params + h, loss_sum / self._n_residuals()
+
+    def _lm_step_schur(self, params, T_target, lambd: float, residuals_threshold: float):
+        """One Schur-complement LM step."""
+        blocks = self._cand_blocks(params, T_target, self.o_idx, self.v_idx, self.cand_points,
+                                   self.cand_weight, residuals_threshold)
+        h = self._schur_reduce_solve(*blocks[:5], lambd)
+        return self._apply_step(params, h, blocks[5])
+
+    def _lm_step_schur_sharded(self, params, T_target, lambd: float,
+                               residuals_threshold: float):
+        """One Schur-complement LM step with the candidates split over the
+        mesh axis: this rank's block sums, one `all_reduce(SUM)` of all of
+        them in one buffer, and the reduced solve on every rank."""
+        mesh = self.device_mesh
+        # padding targets sit 1 m in front of the camera: their residuals are
+        # finite (projection divides by z) and their zero weight drops them
+        T_pad = torch.eye(4, dtype=T_target.dtype, device=T_target.device)
+        T_pad[2, 3] = 1.0
+        T_t = torch.cat([T_target, T_pad.expand(self._sh_pad, 4, 4)])
+        T_t = shard_leading(T_t, mesh, mesh.mesh_dim_names[0])
+        blocks = self._cand_blocks(params, T_t, self._sh_o_idx, self._sh_v_idx, self._sh_points,
+                                   self._sh_weight, residuals_threshold)
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        torch.distributed.all_reduce(flat, group=self._sh_group)
+        U, V, W, b_o, b_v, loss_sum = (
+            x.view_as(b) for x, b in zip(flat.split([b.numel() for b in blocks]), blocks))
+        h = self._schur_reduce_solve(U, V, W, b_o, b_v, lambd)
+        return self._apply_step(params, h, loss_sum)
 
     def _loss(self, params, T_target, residuals_threshold: float) -> torch.Tensor:
         e = self._residuals(params, T_target)
@@ -323,7 +371,8 @@ class MultiviewRefinement:
 
         Returns dict(TWO [n_obj, 4, 4], TWC [n_views, 4, 4], loss) (numpy)."""
         dev = self.K_t.device
-        step = self._lm_step_schur if self.solver == "schur" else self._lm_step
+        step = {"schur": self._lm_step_schur,
+                "schur_sharded": self._lm_step_schur_sharded}.get(self.solver, self._lm_step)
         best = None
         for s in range(n_init):
             TWO0, TWC0 = initialize_TWO_TWC(

@@ -444,8 +444,14 @@ def render_batch_fused(
     lights: Optional[torch.Tensor] = None,  # [B, 5], see `shade_lambert`
 ) -> RenderOutput:
     """Render B object instances, one per image (counterpart of
-    `render_batch_pallas`)."""
+    `render_batch_pallas`). `assets` is the whole database, or this rank's
+    object block (`parallel.mesh.shard_objects`), whose `select` gathers the
+    instances' rows, textures included, from their owners."""
     inst = assets.select(obj_ids)
+    # a whole database samples its textures by object id; a sharded one's
+    # select hands back each instance's texture
+    textures, tex_ids = ((assets.textures, obj_ids) if isinstance(assets, RenderAssets)
+                         else (inst.textures, torch.arange(len(obj_ids), device=obj_ids.device)))
     fd, attrs = face_inputs(inst, TCO, K)
     iz, attr = rasterize(fd.u, fd.v, fd.inv_z, fd.valid, attrs, resolution)
 
@@ -455,7 +461,7 @@ def render_batch_fused(
     n = attr[:, 3:6].permute(0, 2, 3, 1)
     n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-8)
     n = torch.where(n[..., 2:3] > 0, -n, n)
-    albedo = resolve_albedo(rgb, assets.textures, obj_ids, inst.has_texture)
+    albedo = resolve_albedo(rgb, textures, tex_ids, inst.has_texture)
     rgb = shade_lambert(albedo, n, light_ambient, light_diffuse, lights)
     hit_f = hit[..., None]
     return RenderOutput(

@@ -1,4 +1,5 @@
-"""Train a pose model (refiner or coarse classifier) on one device.
+"""Train a pose model (refiner or coarse classifier) on one device, or
+data-parallel with `--dp`.
 
 PyTorch port of `happypose_tpu/scripts/run_pose_training.py` (parity
 targets: the reference's train_megapose.py:96-459 and
@@ -15,12 +16,21 @@ device when the split has at most 4400), and with `--stream` on the WDS
 shards under `<dir>` or `<dir>/wds` (`datasets/streaming_pose_dataset.py`);
 its batches are drawn in the JAX package's order (one for the model's
 initialization, then the eval batch, then training).
-`--dp` needs `torch.distributed` and raises until it is ported.
+
+`--dp` trains data-parallel over the ranks of the process group, one
+process a device (`torchrun --nproc-per-node N`; without a launcher a group
+of one rank): `--batch-size` is the global batch, as in JAX; every rank
+draws the same global batch and step draws from the shared seeds and
+makes only its contiguous block; BatchNorm statistics, gradients, loss and
+metrics are averaged over the ranks (`training/trainer.py`); epoch metrics
+go through `reduce_dict`; only rank 0 writes the log and checkpoints.
 
 Usage:
   python -m happypose_tpu_torch.scripts.run_pose_training \
       --run-dir /tmp/run --model-type refiner --data synth \
       --epochs 2 --epoch-size 64 --batch-size 8
+  torchrun --standalone --nproc-per-node 2 -m happypose_tpu_torch.scripts.run_pose_training \
+      --run-dir /tmp/run --dp ...
 """
 
 from __future__ import annotations
@@ -38,16 +48,18 @@ from happypose_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 
-def make_pose_dataset(args, mesh_db, dev):
+def make_pose_dataset(args, mesh_db, dev, rank_block=(0, 1)):
     """The training batches of `--data <dir>`: the WDS shards under it with
-    `--stream`, else its BOP frames through `PoseDataset`."""
+    `--stream`, else its BOP frames through `PoseDataset`; this rank's
+    block of each batch (`rank_block` = (rank, world))."""
     from happypose_tpu_torch.datasets.bop import BOPSceneDataset
     from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
     from happypose_tpu_torch.datasets.streaming_pose_dataset import StreamingPoseDataset
 
     data_dir = Path(args.data)
     common = dict(batch_size=args.batch_size, resolution=tuple(args.image_size),
-                  apply_rgb_augmentation=not args.no_augment, device=str(dev))
+                  apply_rgb_augmentation=not args.no_augment, device=str(dev),
+                  rank_block=rank_block)
     if args.stream:
         wds_dir = next((d for d in (data_dir, data_dir / "wds") if list(d.glob("*.tar"))), None)
         if wds_dir is None:
@@ -110,7 +122,8 @@ def main(argv=None) -> int:
     p.add_argument("--init-from", type=Path, default=None,
                    help="warm-start weights from another run dir; optimizer state and "
                         "epoch counter start fresh")
-    p.add_argument("--dp", action="store_true", help="data-parallel over devices")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the ranks of the process group (torchrun)")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="capture a torch.profiler trace of the first epoch to "
@@ -119,35 +132,46 @@ def main(argv=None) -> int:
                    help="torch device of the model, the renders and the data")
     args = p.parse_args(argv)
 
-    if args.dp:
-        raise NotImplementedError(
-            "--dp needs torch.distributed, not ported yet (ROADMAP.md queue 1, item 9)")
     if args.data != "synth" and args.models_dir is None:
         p.error("--data <dir> needs --models-dir")
     if args.stream and args.data == "synth":
         p.error("--stream reads the WDS shards of a recorded split: give --data <dir>")
 
     dev = torch.device(args.device)
+    mesh = None
+    own_group = args.dp and not torch.distributed.is_initialized()
+    if args.dp:
+        from happypose_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device_type=dev.type)
+    rank_block = (mesh.get_local_rank("dp"), mesh.size()) if mesh is not None else (0, 1)
     db = pose_ds = None
     if args.data != "synth":
         from happypose_tpu_torch.datasets.bop import BOPObjectDataset
 
         db = BOPObjectDataset(args.models_dir).mesh_db
-        pose_ds = make_pose_dataset(args, db, dev)
+        pose_ds = make_pose_dataset(args, db, dev, rank_block)
     try:
-        return train(args, dev, db, pose_ds)
+        return train(args, dev, db, pose_ds, mesh)
     finally:
         if hasattr(pose_ds, "stop"):  # the stream's decode thread
             pose_ds.stop()
+        if own_group:  # a group the caller made stays the caller's
+            torch.distributed.destroy_process_group()
 
 
-def train(args, dev, db, pose_ds) -> int:
+def train(args, dev, db, pose_ds, mesh=None) -> int:
     """The training loop of `main`: synthetic batches when `pose_ds` is
-    None, else `pose_ds`'s over the mesh database `db`."""
+    None, else `pose_ds`'s over the mesh database `db`; data-parallel over
+    `mesh`'s "dp" axis when one is given (each rank's block of the global
+    batch and of its draws)."""
+    from happypose_tpu_torch.parallel import reduce_dict
+    from happypose_tpu_torch.parallel.distributed import is_main_process
     from happypose_tpu_torch.lib3d.rotations import geodesic_distance
     from happypose_tpu_torch.lib3d.transforms import apply_pose_noise, sample_pose_noise
     from happypose_tpu_torch.models.pose_predictor import PosePredictor, PosePredictorConfig
     from happypose_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from happypose_tpu_torch.training.trainer import split_batch_for_mesh
     from happypose_tpu_torch.training.forward_loss import (
         make_coarse_grid_loss_fn, make_coarse_loss_fn, make_refiner_loss_fn,
     )
@@ -159,6 +183,13 @@ def train(args, dev, db, pose_ds) -> int:
     from happypose_tpu_torch.utils.profiling import device_trace
     from happypose_tpu_torch.utils.random import generator_for
 
+    world = 1 if mesh is None else mesh.size()
+    if args.batch_size % world:
+        raise SystemExit(f"--dp: --batch-size {args.batch_size} does not divide by {world} ranks")
+
+    def shard(tree):  # this rank's block of a global batch's tensors
+        return tree if mesh is None else split_batch_for_mesh(tree, mesh)
+
     # ---- data ----
     if args.data == "synth":
         db = make_synth_mesh_db(args.synth_set, args.mesh_files, max_faces=args.max_faces)
@@ -166,9 +197,10 @@ def train(args, dev, db, pose_ds) -> int:
         K1 = torch.tensor([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1.0]], device=dev)
 
         def synth_batch(epoch, i):
-            return make_synth_batch(assets, K1, sample_synth_scenes(
+            scenes = sample_synth_scenes(
                 generator_for("synth", epoch, i, device=dev), n_objects=len(db.labels),
-                batch_size=args.batch_size, resolution=(H, W)))
+                batch_size=args.batch_size, resolution=(H, W))
+            return make_synth_batch(assets, K1, shard(scenes))
 
         def batches(epoch):
             for i in range(args.epoch_size // args.batch_size):
@@ -194,6 +226,7 @@ def train(args, dev, db, pose_ds) -> int:
         compute_dtype="bfloat16" if args.bf16 else "float32",
         predict_pose_update=args.model_type == "refiner",
         predict_rendered_views_logits=args.model_type == "coarse",
+        bn_axis_name="dp" if mesh is not None else None,
     )
     model = PosePredictor(cfg).init_weights(torch.Generator().manual_seed(0))
     if args.init_from is not None:
@@ -219,14 +252,14 @@ def train(args, dev, db, pose_ds) -> int:
 
     cur_iters = args.n_iterations
     loss_fn = build_loss(cur_iters)
-    step_fn = make_train_step(loss_fn)
+    step_fn = make_train_step(loss_fn, mesh=mesh)
 
     # in-training eval: refine noised ground truth on a fixed held-out batch
     eval_fn = None
     if args.eval_every and args.model_type == "refiner":
         eval_batch = synth_batch(999983, 0)
-        eval_noise = sample_pose_noise(
-            generator_for("eval", 424242, device=dev), args.batch_size)
+        eval_noise = shard(sample_pose_noise(
+            generator_for("eval", 424242, device=dev), args.batch_size))
 
         @torch.no_grad()
         def eval_fn():
@@ -242,7 +275,9 @@ def train(args, dev, db, pose_ds) -> int:
                     geodesic_distance(T[:, :3, :3], gt[:, :3, :3]).mean()) * 180.0 / np.pi,
             }
 
-    args.run_dir.mkdir(parents=True, exist_ok=True)
+    main_process = is_main_process()
+    if main_process:
+        args.run_dir.mkdir(parents=True, exist_ok=True)
     log_path = args.run_dir / "log.txt"
     for epoch in range(start_epoch, args.epochs):
         if args.add_iteration_epoch_interval and args.model_type == "refiner":
@@ -252,20 +287,29 @@ def train(args, dev, db, pose_ds) -> int:
                 cur_iters = want
                 logger.info(f"curriculum: n_iterations -> {cur_iters}")
                 loss_fn = build_loss(cur_iters)
-                step_fn = make_train_step(loss_fn)
+                step_fn = make_train_step(loss_fn, mesh=mesh)
         t0 = time.time()
         epoch_metrics = []
-        trace_dir = args.run_dir / "trace" if (args.profile and epoch == start_epoch) else None
+        trace_dir = (args.run_dir / "trace"
+                     if args.profile and epoch == start_epoch and main_process else None)
         with device_trace(trace_dir):
             for i, batch in enumerate(batches(epoch)):
-                draws = loss_fn.sample(generator_for("step", epoch, i, device=dev), batch)
+                # the draws of the global batch (a sampler reads only the leading
+                # size and the device of `TCO_gt`), this rank's rows of them
+                global_like = batch._replace(TCO_gt=batch.TCO_gt.repeat(world, 1, 1))
+                draws = shard(loss_fn.sample(generator_for("step", epoch, i, device=dev),
+                                             global_like))
                 epoch_metrics.append(step_fn(state, batch, draws))
         avg = {k: float(np.mean([m[k] for m in epoch_metrics])) for k in epoch_metrics[0]}
-        avg.update(epoch=epoch, time=time.time() - t0)
+        avg.update(time=time.time() - t0)
         if eval_fn is not None and (epoch + 1) % args.eval_every == 0:
             avg.update(eval_fn())
-        with open(log_path, "a") as f:
-            f.write(json.dumps(avg) + "\n")
+        if mesh is not None:
+            avg = {k: float(v) for k, v in reduce_dict(avg, mesh, "dp").items()}
+        avg["epoch"] = epoch
+        if main_process:
+            with open(log_path, "a") as f:
+                f.write(json.dumps(avg) + "\n")
         logger.info(f"epoch {epoch}: loss={avg['loss']:.4f} ({avg['time']:.1f}s)")
         if (args.save_every and (epoch + 1) % args.save_every == 0) or epoch + 1 == args.epochs:
             save_checkpoint(args.run_dir, state, epoch + 1,

@@ -1,5 +1,5 @@
-"""Training: losses, the optimizer and the train step on one device,
-synthetic batches (PyTorch port of `happypose_tpu/training/`)."""
+"""Training: losses, the optimizer and the train step (on one device or
+data-parallel over a mesh axis), synthetic batches (PyTorch port of `happypose_tpu/training/`)."""
 
 from happypose_tpu_torch.training.losses import (
     coarse_classification_loss,

@@ -1,6 +1,15 @@
-"""The train step on one device (PyTorch port of
-`happypose_tpu/training/trainer.py`; its shard_map over a device mesh, the
-`mesh` argument and `split_batch_for_mesh` wait for `torch.distributed`).
+"""The train step, on one device or data-parallel over a mesh axis
+(PyTorch port of `happypose_tpu/training/trainer.py`).
+
+Data-parallel, as JAX's `shard_map` step with its `pmean`s: each rank
+takes its block of the batch and of the step's draws
+(`split_batch_for_mesh`), its BatchNorms share the statistics of the
+whole batch (`BatchNorm2d.group`, bound for the step), and after the
+backward pass the gradients (in one flattened buffer a dtype), the loss
+and the metrics are averaged over the axis's group. Clip and Adam step
+then run identically on every rank. Explicit all-reduces stand in for
+`DistributedDataParallel`: a loss function calls the model several times
+in one graph, and this form is the one that mirrors `pmean`.
 
 optax's semantics, written out where PyTorch's differ:
 - the clip is `optax.clip_by_global_norm`: g * max / max(norm, max), not
@@ -15,12 +24,17 @@ optax's semantics, written out where PyTorch's differ:
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
+from happypose_tpu_torch.models.backbones import BatchNorm2d
+from happypose_tpu_torch.parallel.mesh import shard_leading
 from happypose_tpu_torch.training.forward_loss import Draws, LossFn, PoseTrainingBatch
 
 
@@ -128,19 +142,65 @@ def _snapshot(tensors: Iterable[torch.Tensor]) -> Callable[[], None]:
     return restore
 
 
-def make_train_step(loss_fn: LossFn):
+@contextlib.contextmanager
+def _synced_batchnorm(model: nn.Module, group, axis: str) -> Iterator[None]:
+    """Bind `group` to the BatchNorms of `model` named for `axis` while the
+    step runs (the axis exists only inside JAX's shard_map too)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d) and m.axis_name == axis]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
+
+
+@torch.no_grad()
+def _all_reduce_mean(tensors: List[torch.Tensor], group, size: int) -> None:
+    """Average `tensors` over `group` in place: one flattened buffer and one
+    `all_reduce` a dtype."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        flat /= size
+        views = flat.split([t.numel() for t in ts])
+        torch._foreach_copy_(ts, [v.view_as(t) for v, t in zip(views, ts)])
+
+
+def make_train_step(loss_fn: LossFn, mesh: Optional[DeviceMesh] = None, axis: str = "dp"):
     """`step(state, batch, draws) -> metrics` (floats): forward, backward,
     clip and update in place, or skip a non-finite step. Metrics are the
     loss function's, `loss`, `grad_norm` (0 for a skipped step) and
-    `skipped_nonfinite`."""
+    `skipped_nonfinite`.
+
+    With `mesh`, `batch` and `draws` are this rank's blocks
+    (`split_batch_for_mesh`), the model's BatchNorms named for `axis` sync
+    over its group, and gradients, loss and metrics are averaged over it, so
+    every rank takes the same step: the step on the whole batch."""
+    group = size = None
+    if mesh is not None:
+        group, size = mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(axis))
 
     def step(state: TrainState, batch: PoseTrainingBatch, draws: Draws) -> Dict[str, float]:
         model, opt = state.model, state.optimizer
         restore_buffers = _snapshot(model.buffers())
         opt.adam.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, draws)
-        loss.backward()
-        grad_norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+        with (_synced_batchnorm(model, group, axis) if mesh is not None
+              else contextlib.nullcontext()):
+            loss, metrics = loss_fn(batch, draws)
+            loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if mesh is not None:
+            _all_reduce_mean(grads, group, size)
+            keys = sorted(metrics)
+            avg = torch.stack([loss.detach()] + [metrics[k].detach().float() for k in keys])
+            _all_reduce_mean([avg], group, size)
+            loss, metrics = avg[0], dict(zip(keys, avg[1:]))
+        grad_norm = global_norm(grads)
         ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if ok:
             opt.apply(grad_norm)
@@ -154,3 +214,10 @@ def make_train_step(loss_fn: LossFn):
         return out
 
     return step
+
+
+def split_batch_for_mesh(batch: Any, mesh: DeviceMesh, axis: str = "dp") -> Any:
+    """This rank's contiguous block of the leading axis of every tensor of
+    `batch` (a `PoseTrainingBatch`, the step's draws); the leading size
+    must divide by the axis size."""
+    return shard_leading(batch, mesh, axis)

@@ -6,7 +6,8 @@ A checkpoint is a run directory of the port (`utils/load_model.py`:
 the optimizer's state and the step count (`optimizer.pt`) and `epoch.json`
 beside it. Both `.pt` files also have a `_last` copy, written after the
 first ones: a truncated or corrupt file falls back to it, as the reference
-falls back to its `checkpoint_epoch=last` copy.
+falls back to its `checkpoint_epoch=last` copy. In a run of several
+processes only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from happypose_tpu_torch.parallel.distributed import is_main_process
 from happypose_tpu_torch.training.trainer import TrainState
 from happypose_tpu_torch.utils.load_model import STATE_DICT_FILE, UNREADABLE, last_copy
 from happypose_tpu_torch.utils.logging import get_logger
@@ -33,8 +35,10 @@ def save_checkpoint(
     config: Optional[Dict] = None,
     keep_last_copy: bool = True,
 ) -> Path:
-    """Write the train state; returns the path of the state dict."""
+    """Write the train state (rank 0 only); returns the path of the state dict."""
     run_dir = Path(run_dir)
+    if not is_main_process():
+        return run_dir / STATE_DICT_FILE
     run_dir.mkdir(parents=True, exist_ok=True)
     payloads = {
         run_dir / STATE_DICT_FILE: {

@@ -168,6 +168,51 @@ def test_multiview_fails_where_there_is_no_card():
                             K=np.eye(3)[None], meshes=meshes)
 
 
+def test_parallel_entry_points_default_to_the_card():
+    """`make_mesh` and `init_distributed_mode` take `device_type="cuda"`,
+    whose backend is NCCL (gloo only for `cpu`, asked for by name); a
+    `PoseEstimator` with a mesh and `schur_sharded` bundle adjustment run
+    on the card by default (`PoseEstimator` follows its assets, which
+    `render_assets` puts on the card; `MultiviewRefinement` takes
+    `device="cuda"`)."""
+    from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
+    from happypose_tpu_torch.parallel.distributed import backend_for, init_distributed_mode
+    from happypose_tpu_torch.parallel.mesh import make_mesh
+
+    for fn in (make_mesh, init_distributed_mode):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda"
+    assert (backend_for("cuda"), backend_for("cpu")) == ("nccl", "gloo")
+    with pytest.raises(ValueError, match="no collective backend"):
+        backend_for("mps")
+    assert "device" not in inspect.signature(PoseEstimator).parameters
+    assert inspect.signature(PoseEstimator).parameters["device_mesh"].default is None
+    assert inspect.signature(MultiviewRefinement).parameters["device"].default == "cuda"
+
+
+def test_make_mesh_fails_where_there_is_no_card():
+    """`make_mesh()` makes an NCCL group of one rank: where NCCL or the card
+    is missing it raises, and no gloo group stands in (in a subprocess, so
+    that no group is left in the test's process)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    import subprocess
+    import sys
+
+    code = ("import torch.distributed as dist\n"
+            "from happypose_tpu_torch.parallel import make_mesh\n"
+            "try:\n"
+            "    make_mesh()\n"
+            "except Exception as e:\n"
+            "    print('RAISED', type(e).__name__, dist.is_initialized() and dist.get_backend())\n")
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env,
+                          cwd=Path(happypose_tpu_torch.__file__).resolve().parents[1])
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+    assert "gloo" not in proc.stdout, proc.stdout
+
+
 def test_device_memory_fails_where_there_is_no_card():
     """`get_device_memory()` asks PyTorch for the card: where there is none,
     PyTorch's own error; a CPU device reports nothing (zeros)."""

@@ -366,7 +366,8 @@ def test_schur_blocks(problem, schur_pair):
     jt, tt = _targets(schur_pair, problem["params"])
     ref = j._cand_blocks(jnp.asarray(problem["params"]), jt, j.o_idx, j.v_idx, j.cand_points,
                          j.cand_weight, 25.0)
-    out = t._cand_blocks(_t(problem["params"]), tt, 25.0)
+    out = t._cand_blocks(_t(problem["params"]), tt, t.o_idx, t.v_idx, t.cand_points,
+                         t.cand_weight, 25.0)
     for name, o, r in zip(("U", "V", "W", "b_o", "b_v", "loss_sum"), out, ref):
         r = np.asarray(r)
         np.testing.assert_allclose(o.numpy(), r, atol=1e-5 * np.abs(r).max(), rtol=0,
@@ -452,7 +453,9 @@ def test_solve_with_descending_steps_matches_jax(solver, problem):
 
 
 def test_schur_sharded_is_not_ported(problem):
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    """`schur_sharded` is ported (`tests/test_torch_parallel.py` holds it to
+    JAX); without a mesh to split the candidates over, it refuses to run."""
+    with pytest.raises(ValueError, match="needs a device_mesh"):
         tba.MultiviewRefinement(meshes=problem["tm"], solver="schur_sharded", device="cpu",
                                 **problem["args"])
 

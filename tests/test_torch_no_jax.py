@@ -43,7 +43,9 @@ def test_port_imports_no_jax():
                  "scripts.run_multiview_eval", "scripts.run_custom_scenario",
                  "models.backbones", "utils.resources", "datasets.deepim_modelnet",
                  "scripts.preprocess_object_dataset", "scripts.download",
-                 "scripts.run_accuracy_demo"):
+                 "scripts.run_accuracy_demo", "parallel", "parallel.distributed",
+                 "parallel.mesh", "parallel.collectives", "lib3d", "meshes", "datasets",
+                 "inference", "evaluation"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,8 @@
 """The train step and the training CLIs of the port on the CPU at a tiny
 size: the skip of a non-finite step, `run_pose_training` (run directory,
 JAX's log keys, resume, a corrupt state dict, warm start, the curriculum,
-bfloat16, the profiler, the paths that are not ported yet or refuse their
-arguments),
+bfloat16, the profiler, the paths that refuse their arguments, `--dp`
+without a launcher),
 `eval_refiner_checkpoint`, `eval_coarse_checkpoint`, `plot_training_log`
 against JAX's and `supervise`.
 
@@ -231,16 +231,20 @@ def test_init_from_curriculum_profile_and_bf16(runs, tmp_path):
     (["--data", "synth", "--dp"], "item 9"),
 ])
 def test_paths_not_ported_raise(argv, item, tmp_path):
-    """Data parallelism raises, naming the ROADMAP item that ports it. The
-    data paths of item 5 are ported: they refuse the arguments they cannot
-    use (a split without `--models-dir`, `--stream` without a split). In
-    every case nothing trains on something else."""
+    """Every path is ported now. The data paths of item 5 refuse the
+    arguments they cannot use (a split without `--models-dir`, `--stream`
+    without a split), and nothing trains on something else. Data
+    parallelism (item 9) without a launcher trains on a process group of
+    one rank and destroys the group when it ends."""
     if item == "item 9":
-        with pytest.raises(NotImplementedError, match=item):
-            run_pose_training.main(["--run-dir", str(tmp_path / "r"), "--device", "cpu"] + argv)
-    else:
-        with pytest.raises(SystemExit):
-            run_pose_training.main(["--run-dir", str(tmp_path / "r"), "--device", "cpu"] + argv)
+        run_pose_training.main(["--run-dir", str(tmp_path / "r"), "--device", "cpu",
+                                "--epochs", "1", "--epoch-size", "2", "--batch-size", "2",
+                                "--image-size", "48", "64", "--render-size", "24", "32"] + argv)
+        assert json.loads((tmp_path / "r" / "log.txt").read_text())["epoch"] == 0
+        assert not torch.distributed.is_initialized()
+        return
+    with pytest.raises(SystemExit):
+        run_pose_training.main(["--run-dir", str(tmp_path / "r"), "--device", "cpu"] + argv)
     assert not (tmp_path / "r").exists()
 
 

@@ -76,8 +76,8 @@ def test_run_pose_training_from_disk_draws_batches_in_jax_order(split, tmp_path,
     monkeypatch.setattr(run_pose_training, "make_pose_dataset",
                         lambda *a: Counted(make_ds(*a)))
 
-    def recording_step(loss_fn):
-        step = make_step(loss_fn)
+    def recording_step(loss_fn, **kw):
+        step = make_step(loss_fn, **kw)
         return lambda state, batch, draws: trained.append(batch) or step(state, batch, draws)
 
     monkeypatch.setattr(training, "make_train_step", recording_step)
