@@ -213,6 +213,12 @@ Phases (any failure raises, so the exit code is nonzero):
    8 views x 15 objects against `schur` (one step's poses at lambda 1e4, the
    solve's outcome); a render through the object-sharded `select` against
    the whole database's (bit-equal).
+39. The port's measured entry points (`happypose_tpu_torch/bench.py`):
+   refiner pose-iterations/s at B = 16 and 64 (bfloat16, one launch an
+   iteration), detector -> megapose-RGB s/image at D = 4 (8 images, 19
+   launches a frame), the breakdown and `entry()`'s forward; their JSON
+   lines; the kernel held to its plain version at the shapes they add
+   (B = 4 textured, B = 4 and 20 of the pipeline, B = 64).
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -584,14 +590,11 @@ def _frame_launches(cfg, D: int, grid_size=None) -> int:
     `cfg`. MegaPose (`grid_size` rotations a detection): coarse chunks,
     refiner chunks x iterations, scoring chunks. CosyPose (no grid): one
     render a chunk and iteration of the coarse model and the refiner."""
+    from happypose_tpu_torch.bench import frame_launches
+
     if grid_size is None:
         return math.ceil(D / cfg.bsz_objects) * (cfg.n_coarse_iterations + cfg.n_refiner_iterations)
-    n_refine = D * cfg.n_pose_hypotheses
-    return (
-        math.ceil(grid_size * D / cfg.bsz_images)
-        + math.ceil(n_refine / cfg.bsz_objects) * cfg.n_refiner_iterations
-        + math.ceil(n_refine / cfg.bsz_images)
-    )
+    return frame_launches(cfg, D, grid_size)
 
 
 def _megapose_launches(est, D: int) -> int:
@@ -2504,15 +2507,11 @@ def _device_share(fn) -> str:
     copies, their time, the call's wall time and the device's idle share.
     The device's activity only: reading back a scene's ~100,000 host
     operators as well takes the profiler tens of seconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from happypose_tpu_torch.bench import busy_share
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(fn)
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in device) / 1e6
-    return (f"{sum(e.count for e in device)} device kernels and copies, {busy * 1e3:.2f} ms on "
-            f"the device of {wall * 1e3:.1f} ms (idle {1 - busy / wall:.3f})")
+    p = busy_share(fn)
+    return (f"{p['device_kernels']} device kernels and copies, {p['busy_s'] * 1e3:.2f} ms on "
+            f"the device of {p['wall_s'] * 1e3:.1f} ms (idle {1 - p['busy_share']:.3f})")
 
 
 def _scene_split(probe: _MultiviewProbe, solver: str) -> dict:
@@ -3388,6 +3387,73 @@ def phase_sharded(dev, root: Path, scene: Path) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+def phase_bench(dev, kernel: dict) -> dict:
+    """The port's measured entry points (`happypose_tpu_torch/bench.py`) at
+    full width, in this process: `refiner_bench` at B = 16 and 64 (one
+    launch an iteration: 1 warm + N_SCAN timed + N_SCAN profiled),
+    `pipeline_bench` (8 images + 1 warm; the frame's launches from the
+    chunk sizes), `breakdown` (N_SCAN + 1 renders and full iterations) and
+    `entry()`'s forward (one launch; a second call equal). Each path's new
+    shapes are held to the plain version after its count: `entry()`'s
+    textured world at B = 4, the pipeline's last refiner chunk (B = 4 at
+    D = 4) and its scoring chunk (B = 20), the refiner at B = 64."""
+    from happypose_tpu_torch import bench
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    log(f"bench: {card_line()}; refiner and breakdown {bench.precision('bfloat16')}, "
+        f"pipeline and entry() {bench.precision('float32')}")
+    launches, figures, n = {}, {}, bench.N_SCAN
+    held = {(BATCHES[0], RES), (BATCHES[1], RES)}  # the debug set's shapes of phase 3
+    for B in (16, 64):
+        rf.launches = 0
+        with _KernelInputs() as inputs:
+            line, notes = bench.refiner_bench(batch=B, device=dev)
+        count = rf.launches
+        assert notes["launches"] == 1 + n and count == 1 + 2 * n, (notes["launches"], count)
+        assert torch.isfinite(notes["TCO"]).all()
+        assert notes["compute_dtype"] == bench.precision("bfloat16"), notes["compute_dtype"]
+        launches[f"bench refiner B={B}"] = count
+        figures[f"refiner_b{B}"] = {"line": line, "seconds": notes["seconds"],
+                                    "profile": notes["profile"]}
+        log(f"bench refiner B={B}: {json.dumps(line)}; {count} launches (1 warm + {n} timed + "
+            f"{n} profiled); profiled window {json.dumps(notes['profile'])}")
+        _check_new_shapes(f"bench_refiner_B{B}", inputs, kernel, held=set(held))
+
+    rf.launches = 0
+    with _KernelInputs() as inputs:
+        line, notes = bench.pipeline_bench(n_images=8, device=dev)
+    count, expected = rf.launches, notes["frames"] * notes["launches_per_frame"]
+    assert notes["launches_per_frame"] == 19, notes["launches_per_frame"]  # 8 + 2 x 5 + 1 at D = 4
+    assert count == notes["launches"] == expected, (count, notes["launches"], expected)
+    final = notes["results"]["final"]
+    assert int(final.valid.sum()) == 4 and torch.isfinite(final.poses).all()
+    launches["bench --pipeline (9 frames)"] = count
+    figures["pipeline"] = line
+    log(f"bench pipeline: {json.dumps(line)}; {count} launches ({notes['launches_per_frame']} a "
+        f"frame x {notes['frames']} frames)")
+    _check_new_shapes("bench_pipeline", inputs, kernel, held=set(held))
+
+    rf.launches = 0
+    line = bench.breakdown(device=dev)
+    assert rf.launches == 2 * (1 + n), rf.launches
+    launches["bench --breakdown"] = rf.launches
+    figures["breakdown"] = line
+    log(f"bench breakdown: {json.dumps(line)}; {rf.launches} launches")
+
+    forward, args = bench.entry(device=dev)
+    rf.launches = 0
+    with _KernelInputs() as inputs:
+        out = forward(*args)
+    torch.cuda.synchronize()
+    assert rf.launches == 1 and out.shape == (4, 4, 4) and torch.isfinite(out).all()
+    launches["bench entry()"] = rf.launches
+    again = forward(*args)
+    assert torch.equal(out, again), "entry()'s forward differs between two calls"
+    log(f"bench entry(): forward {tuple(out.shape)}, 1 launch, equal to a second call")
+    _check_new_shapes("bench_entry", inputs, kernel, held=set())
+    return {"launches": launches, "figures": figures}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     device = phase_device()
@@ -3466,6 +3532,9 @@ def main() -> None:
         sharded = timed_phase(38, phase_sharded, dev, root, mv["scene"])
         launches.update(sharded["launches"])
         log(f"sharded phase 38: {seconds[38]:.1f} s; figures: " + json.dumps(sharded["figures"]))
+        bench_run = timed_phase(39, phase_bench, dev, kernel)
+        launches.update(bench_run["launches"])
+        log(f"bench phase 39: {seconds[39]:.1f} s; figures: " + json.dumps(bench_run["figures"]))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",

@@ -214,4 +214,4 @@ def crop_resize_to_aspect(
         [x1, y1, x1 + crop_w, y1 + crop_h], dtype=torch.float32, device=images.device
     ).expand(B, 4)
     out = roi_align_matmul(images, boxes, target_hw, sampling_ratio=2)
-    return out, get_K_crop_resize(K, boxes, target_hw)
+    return out, get_K_crop_resize(K, boxes, (H, W), target_hw)

@@ -91,10 +91,22 @@ class PoseDataset:
     min_area: float = 64.0
     keep_labels: Optional[Sequence[str]] = None
     apply_rgb_augmentation: bool = True
+    # JAX's two fields, which it declares and never reads: its batches, as
+    # these, get no depth and no background augmentation. The port takes
+    # the value that says so and raises on the other (`__post_init__`)
+    apply_depth_augmentation: bool = False
+    apply_background_augmentation: bool = False
     seed: int = 0
     device_cache: bool = False
     device: str = "cuda"
     rank_block: Tuple[int, int] = (0, 1)
+
+    def __post_init__(self):
+        for name in ("apply_depth_augmentation", "apply_background_augmentation"):
+            if getattr(self, name):
+                raise ValueError(f"PoseDataset({name}=True): its batches get no such "
+                                 "augmentation (the JAX package declares the field and "
+                                 "never reads it)")
 
     def _build_device_cache(self) -> Optional[torch.Tensor]:
         """[N, H, W, 3] uint8 tensor of every frame on the device, or None

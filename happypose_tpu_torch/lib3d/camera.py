@@ -50,12 +50,18 @@ def masked_boxes_from_uv(uv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def get_K_crop_resize(
-    K: torch.Tensor, boxes: torch.Tensor, crop_resize: Tuple[int, int]
+    K: torch.Tensor,
+    boxes: torch.Tensor,
+    orig_size: Tuple[int, int],
+    crop_resize: Tuple[int, int],
 ) -> torch.Tensor:
     """Intrinsics of the virtual camera after cropping `boxes` [B, 4] and
     resizing to `crop_resize` (h, w). Same pixel-centre convention as the
     JAX package: the principal point moves by (box size - 1)/2 during the
-    crop, then scales about the resized image centre."""
+    crop, then scales about the resized image centre. `orig_size` (h, w)
+    of the source image is not used, as in the JAX package, whose
+    signature this keeps."""
+    del orig_size
     final_width = float(max(crop_resize))
     final_height = float(min(crop_resize))
     crop_w = boxes[:, 2] - boxes[:, 0]

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -23,13 +23,17 @@ def transform_pts(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bij,bpj->bpi", T[..., :3, :3], pts) + T[:, None, :3, 3]
 
 
-def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble [..., 4, 4] from R [..., 3, 3] and t [..., 3]."""
+def make_T(
+    R: torch.Tensor, t: torch.Tensor, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Assemble [..., 4, 4] from R [..., 3, 3] and t [..., 3], in `dtype`
+    (default: R's)."""
+    dtype = dtype or R.dtype
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    R = R.expand(batch + (3, 3))
-    t = t.expand(batch + (3,))
+    R = R.expand(batch + (3, 3)).to(dtype)
+    t = t.expand(batch + (3,)).to(dtype)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=R.device)
     bottom = bottom.expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

@@ -226,22 +226,29 @@ class MeshDataBase:
         n_vertices: Optional[int] = None,
         n_faces: Optional[int] = None,
         texture_size: int = 256,
+        bake_textures: bool = False,
         device="cuda",
     ) -> RenderAssets:
         """Padded triangle-soup tensors for the rasterizer.
 
         Padding faces are degenerate (all indices 0) and masked. Textured
         meshes get their images resampled to a common `texture_size` square
-        and are sampled through perspective-correct UVs by the renderer.
+        and are sampled through perspective-correct UVs by the renderer;
+        `bake_textures` instead folds each texture into per-vertex colours
+        (`Mesh.with_baked_texture`: cheaper, detail limited by the vertices).
         """
         n_obj = len(self.labels)
         if n_vertices is None:
             n_vertices = max(len(self.meshes[l].vertices) for l in self.labels)
         if n_faces is None:
             n_faces = max(len(self.meshes[l].faces) for l in self.labels)
+        meshes = {
+            l: self.meshes[l].with_baked_texture() if bake_textures else self.meshes[l]
+            for l in self.labels
+        }
         any_texture = any(
             m.texture is not None and m.vertex_uv is not None
-            for m in self.meshes.values()
+            for m in meshes.values()
         )
         T = texture_size if any_texture else 1
 
@@ -255,7 +262,7 @@ class MeshDataBase:
         HT = np.zeros((n_obj,), bool)
 
         for i, label in enumerate(self.labels):
-            mesh = self.meshes[label]
+            mesh = meshes[label]
             scale = self.scales.get(label, 1.0)
             nv, nf = len(mesh.vertices), len(mesh.faces)
             if nv > n_vertices or nf > n_faces:

@@ -178,7 +178,7 @@ class PosePredictor(nn.Module):
             images, boxes_crop, output_size=self.cfg.render_size, sampling_ratio=4,
             matmul_dtype=self._lowp_dtype,
         )
-        K_crop = get_K_crop_resize(K, boxes_crop, self.cfg.render_size)
+        K_crop = get_K_crop_resize(K, boxes_crop, (H, W), self.cfg.render_size)
         return images_crop, K_crop, boxes_rend, boxes_crop
 
     def _compute_KV_crop(self, im_hw, K, TCV_O, points, points_mask):
@@ -193,7 +193,7 @@ class PosePredictor(nn.Module):
         boxes = deepim_boxes(
             center, boxes_rend, boxes_rend, lamb=self.cfg.crop_lamb, im_size=im_hw
         )
-        return get_K_crop_resize(K_rep, boxes, self.cfg.render_size).reshape(B, V, 3, 3)
+        return get_K_crop_resize(K_rep, boxes, im_hw, self.cfg.render_size).reshape(B, V, 3, 3)
 
     def _render_views(self, assets, obj_ids, TCV_O, KV_crop):
         """Render every view -> [B, V*C, h, w] channels-first."""

@@ -115,8 +115,8 @@ class MultiviewRefinement:
     meshes: BatchedMeshes
     n_points: int = 8
     solver: str = "dense"
-    device: str = "cuda"
     device_mesh: object = None
+    device: str = "cuda"
 
     def __post_init__(self):
         if self.solver not in SOLVERS:

@@ -5,6 +5,7 @@ B = 288, 240x320), beside their bound.
     python3 -m happypose_tpu_torch.scripts.bench_raster kernel \
         [--old-source FILE.cu] [--steps [WORD ...]] [--batches B ...] [--runs 10]
     python3 -m happypose_tpu_torch.scripts.bench_raster frame
+    python3 -m happypose_tpu_torch.scripts.bench_raster plain [--runs 10]
     python3 happypose_tpu_torch/scripts/bench_raster.py frame --root DIR
 
 `kernel`: the committed kernels; with `--old-source`, also an earlier
@@ -24,6 +25,11 @@ one frame of each under `torch.profiler`. `--root DIR` takes the package
 from another tree inside this checkout (a parent commit unpacked into an
 ignored directory), so two trees can be compared in turns on one card;
 run the file itself then (with `-m` the package is already imported).
+
+`plain`: the plain PyTorch version (`raster_fused_reference`) on the whole
+batch, one call each, at the shapes where `chip_smoke.py` holds it to the
+kernel on the first images only (the whole batch takes up to a minute),
+beside the kernel's time on the same inputs.
 
 Scenes, timing, the profiler helper and the bound are those of this
 checkout's `chip_smoke.py`, loaded from its file. Results go to stdout
@@ -261,9 +267,31 @@ def bench_frame(cs, args) -> dict:
     return results
 
 
+def bench_plain(cs, args) -> dict:
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    dev = torch.device("cuda", 0)
+    results = {}
+    for mesh, B, res, f, n_plain in cs.KERNEL_SHAPES:
+        if n_plain is None:
+            continue
+        A, bbox = cs.kernel_inputs(mesh, B, dev, res, f)
+        out = rf.raster_fused(A, bbox, res)
+        row = dict(cs.raster_bound(A, bbox, out))
+        row["ms"] = cs.cuda_ms(lambda: rf.raster_fused(A, bbox, res), args.runs, n_warmup=3)
+        row["plain_ms_one_call"] = cs.cuda_ms(
+            lambda: rf.raster_fused_reference(A, bbox, res), 1, n_warmup=0)
+        results[cs.shape_name(mesh, B, res)] = row
+        cs.log(f"{cs.shape_name(mesh, B, res)}: " + json.dumps(row))
+    return results
+
+
+MODES = {"kernel": bench_kernel, "frame": bench_frame, "plain": bench_plain}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("kernel", "frame"))
+    parser.add_argument("mode", choices=tuple(MODES))
     parser.add_argument("--old-source")
     parser.add_argument("--steps", nargs="*", metavar="WORD",
                         help="time the variants (those whose name holds a WORD; all if none given)")
@@ -287,7 +315,7 @@ def main() -> None:
     device = cs.phase_device()
     torch.cuda.set_device(0)
     results = {"device": device, "root": str(root.relative_to(ROOT)),
-               "results": (bench_kernel if args.mode == "kernel" else bench_frame)(cs, args)}
+               "results": MODES[args.mode](cs, args)}
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"bench_raster_{args.mode}{args.tag}.json").write_text(json.dumps(results, indent=1))

@@ -167,11 +167,11 @@ def spec_from_checkpoints(
 def load_named_model(
     name: Union[str, NamedModelSpec],
     mesh_db: MeshDataBase,
+    checkpoint_dirs: Optional[Mapping[str, Union[str, Path]]] = None,
     n_points: int = 1000,
     seed: int = 0,
     device="cuda",
     state_dicts: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
-    checkpoint_dirs: Optional[Mapping[str, Union[str, Path]]] = None,
 ) -> PoseEstimator:
     """Build a PoseEstimator for `name` (a key of `NAMED_MODELS`, or a spec
     of the caller's own: overrides are handed on, never written into the

@@ -246,7 +246,7 @@ def case_masked_boxes_from_uv(rs):
 def case_get_K_crop_resize(rs):
     boxes = _boxes(rs)
     j = jcam.get_K_crop_resize(jnp.asarray(_K()), jnp.asarray(boxes), (480, 640), (240, 320))
-    t = tcam.get_K_crop_resize(torch.from_numpy(_K()), torch.from_numpy(boxes), (240, 320))
+    t = tcam.get_K_crop_resize(torch.from_numpy(_K()), torch.from_numpy(boxes), (480, 640), (240, 320))
     return np.asarray(j), t.numpy()
 
 

@@ -11,6 +11,7 @@ its test.
 """
 
 import ast
+import dataclasses
 import importlib
 import inspect
 from pathlib import Path
@@ -299,3 +300,284 @@ def test_detector_bn_axis_name_names_every_batchnorm():
     assert len(bns) == 53 and all(m.axis_name == "dp" and m.group is None for m in bns)
     assert all(m.axis_name is None for m in td.FCOSDetector(td.DetectorConfig(**CFG)).modules()
                if isinstance(m, BatchNorm2d))
+
+
+# ------------------------------------------------- parameters, by `ast`
+
+# A parameter of a JAX function, method or dataclass (or Flax module)
+# field that the port names otherwise or drops, by its JAX idiom. Each
+# entry: {JAX parameter: the port's name, or None where it has none},
+# the port's own parameters that may come before JAX's in its positional
+# order, and the reason.
+_KEY = "JAX draws inside the function from `key`; the port takes the finished draws"
+PARAMS = {
+    "datasets/augmentations.py::rgb_jitter": (
+        dict(key=None, p_apply=None, brightness=None, contrast=None, saturation=None,
+             sharpness=None), {"draws"},
+        _KEY + " (`sample_rgb_jitter(generator, n, p_apply, brightness, ...)`)"),
+    "datasets/augmentations.py::background_replace": (
+        dict(key=None, p_apply=None), {"draws"},
+        _KEY + " (`sample_background_replace(generator, ..., p_apply)`)"),
+    "datasets/augmentations.py::depth_augment": (
+        dict(key=None, ellipse_dropout_rate=None), {"draws"},
+        _KEY + " (`sample_depth_augment(generator, ..., ellipse_dropout_rate)`)"),
+    "datasets/scene_record.py::record_scene_batch": (
+        dict(key="noise", renderer=None), set(),
+        _KEY + " (the sensor noise); the port has one renderer (ROADMAP, not to port)"),
+    "datasets/scene_record.py::BatchedSceneRecorder": (
+        dict(renderer=None), set(), "the port has one renderer (ROADMAP, not to port)"),
+    "inference/detector.py::Detector": (
+        dict(variables=None), set(),
+        "Flax `variables` live apart from the module; a torch module holds its weights"),
+    "inference/icp_refiner.py::icp_point_to_plane": (
+        dict(n_points=None), set(),
+        "unused in JAX: a `static_argnames` entry of its jit (ROADMAP, not to port)"),
+    "meshes/database.py::MeshDataBase.batched": (
+        dict(seed=None), set(),
+        "unused in JAX, which deletes it on entry: the subsample is deterministic"),
+    "inference/icp_refiner.py::ICPRefiner.refine": (
+        dict(key="generator"), set(), "a JAX PRNG key becomes a `torch.Generator`"),
+    "inference/teaser_refiner.py::TeaserRefiner.refine": (
+        dict(key="generator"), set(), "a JAX PRNG key becomes a `torch.Generator`"),
+    "inference/teaser_refiner.py::farthest_point_sample": (
+        dict(key="generator"), set(), "a JAX PRNG key becomes a `torch.Generator`"),
+    "lib3d/transforms.py::add_pose_noise": (
+        dict(key="generator"), set(), "a JAX PRNG key becomes a `torch.Generator`"),
+    "training/synth_data.py::random_rotations": (
+        dict(key="generator"), set(), "a JAX PRNG key becomes a `torch.Generator`"),
+    "training/synth_data.py::make_synth_batch": (
+        dict(rng=None, n_objects=None, batch_size=None, resolution=None, z_range=None,
+             xy_extent=None, renderer=None, force_obj_ids=None), {"draws"},
+        _KEY + " (`sample_synth_scenes(generator, n_objects, batch_size, resolution, ...)`); "
+        "one renderer"),
+    "training/forward_loss.py::sample_grid_hypotheses": (
+        dict(rng=None, n_hypotheses=None, euler_deg_std=None, trans_std=None), {"draws"},
+        _KEY + " (the hypotheses' grid indices and noise)"),
+    "models/pose_predictor.py::PosePredictorConfig": (
+        dict(renderer=None), set(), "the port has one renderer (ROADMAP, not to port)"),
+    "ops/scene_renderer.py::render_scenes": (
+        dict(renderer=None), set(), "the port has one renderer (ROADMAP, not to port)"),
+    "parallel/collectives.py::reduce_dict": (
+        {}, {"mesh"},
+        "a JAX axis name resolves inside `shard_map`; a process group needs the `DeviceMesh`"),
+    "training/trainer.py::make_optimizer": (
+        {}, {"params"}, "`torch.optim` binds the parameters when it is made, optax does not"),
+    "training/trainer.py::make_train_step": (
+        dict(tx=None, donate=None), set(),
+        "the step reads the torch optimizer from its `TrainState`, not an optax `tx`; "
+        "`donate` is XLA's buffer donation"),
+    "utils/checkpoint.py::load_checkpoint": (
+        dict(target="state"), set(),
+        "a Flax target tree to restore into becomes the port's `TrainState` to load into"),
+    "utils/load_model.py::load_named_model": (
+        dict(rng_seed="seed"), set(),
+        "the seed of the weights' `torch.Generator`, where JAX seeds a PRNG key"),
+    "utils/load_model.py::load_detector": (
+        dict(run_dir="cfg"), set(), "takes a run directory, as JAX's, or a `DetectorConfig`"),
+    "utils/resources.py::get_device_memory": (
+        dict(device_index="device"), set(), "a torch device; an index names the card, as in JAX"),
+}
+# whole methods of JAX idioms
+NOT_PORTED_METHODS = {
+    "__call__": "Flax's `__call__`: the port's modules run through `forward`",
+    "setup": "Flax's `setup`: the port's modules build their layers in `__init__`",
+    "tree_flatten": "pytree registration (ROADMAP, not to port)",
+    "tree_unflatten": "pytree registration (ROADMAP, not to port)",
+    "create": "`TrainState.create` over optax; the port's `TrainState` is a dataclass",
+}
+# Flax module fields: the compute dtype (the port's modules run under
+# `torch.autocast`) and the BatchNorm axis (`set_bn_axis_name`); a torch
+# layer takes its input channels first, which Flax infers
+FLAX_FIELDS = {"dtype": None, "bn_axis_name": None}
+TORCH_INPUT_CHANNELS = {"inplanes", "in_ch", "n_inputs"}
+
+
+def _decorators(node):
+    return {getattr(d.func if isinstance(d, ast.Call) else d, "attr", None)
+            or getattr(d.func if isinstance(d, ast.Call) else d, "id", None)
+            for d in node.decorator_list}
+
+
+def _params(fn):
+    """(positional parameter names, keyword-only names, has **kwargs)."""
+    a = fn.args
+    pos = [x.arg for x in a.posonlyargs + a.args]
+    if pos and pos[0] in ("self", "cls"):
+        pos = pos[1:]
+    return pos, [x.arg for x in a.kwonlyargs], a.kwarg is not None
+
+
+def _signatures(path: Path) -> dict:
+    """{name: (positional, keyword-only, **kwargs, is a Flax module)} of a
+    module's public functions, of its public classes (a dataclass's,
+    NamedTuple's or Flax module's fields, else `__init__`'s parameters),
+    and of their public methods and `__call__`."""
+    out = {}
+    tree = ast.parse(path.read_text())
+    uses_flax = any(isinstance(n, (ast.Import, ast.ImportFrom)) and "flax" in ast.unparse(n)
+                    for n in tree.body)
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = (*_params(node), False)
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        bases = {getattr(b, "attr", None) or getattr(b, "id", None) for b in node.bases}
+        flax = uses_flax and "Module" in bases
+        fields = [s.target.id for s in node.body
+                  if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)
+                  and not s.target.id.startswith("_")]
+        methods = {s.name: s for s in node.body if isinstance(s, ast.FunctionDef)}
+        if "dataclass" in _decorators(node) or "NamedTuple" in bases or flax:
+            out[node.name] = (fields, [], False, flax)
+        elif "__init__" in methods:
+            out[node.name] = (*_params(methods["__init__"]), False)
+        for name, fn in methods.items():
+            public = not name.startswith("_") or name == "__call__"  # `__init__`: the class
+            if public and "property" not in _decorators(fn):
+                out[f"{node.name}.{name}"] = (*_params(fn), flax)
+    return out
+
+
+def test_every_jax_parameter_has_its_namesake_in_the_port():
+    """For every public function, method and class of the JAX package, the
+    port's namesake takes each of its parameters (dataclass and Flax
+    fields included) by the same name, and JAX's positional parameters
+    come first in the port's positional order, in JAX's order, so that a
+    call written for JAX means the same in the port. `PARAMS`,
+    `NOT_PORTED_METHODS` and `FLAX_FIELDS` list the JAX idioms with their
+    reasons; `*_jit` wrappers are dropped (ROADMAP, not to port)."""
+    jax_root = Path(happypose_tpu.__file__).parent
+    port_root = Path(happypose_tpu_torch.__file__).parent
+    faults, used = {}, set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel in NOT_PORTED and NOT_PORTED[rel] is None:
+            continue
+        port = _signatures(port_root / rel) if (port_root / rel).exists() else {}
+        for name, (jpos, jkw, _, flax) in _signatures(path).items():
+            method = name.split(".")[-1]
+            if (name in (NOT_PORTED.get(rel) or ()) or method.endswith("_jit")
+                    or "." in name and method in NOT_PORTED_METHODS):
+                continue
+            key = f"{rel}::{name}"
+            if name not in port:
+                faults[key] = "missing"
+                continue
+            renames, port_only, _ = PARAMS.get(key, ({}, set(), ""))
+            used.add(key) if key in PARAMS else None
+            if flax:
+                renames, port_only = {**FLAX_FIELDS, **renames}, port_only | TORCH_INPUT_CHANNELS
+            jpos = [renames.get(p, p) for p in jpos if renames.get(p, p) is not None]
+            jkw = [renames.get(p, p) for p in jkw if renames.get(p, p) is not None]
+            ppos, pkw, pvar, _ = port[name]
+            absent = [p for p in jpos + jkw if p not in ppos + pkw and not pvar]
+            order = [p for p in ppos if p not in port_only][: len(jpos)]
+            if absent or order != jpos:
+                faults[key] = {"absent": absent, "jax": jpos, "port": order}
+    assert not faults, faults
+    assert used == set(PARAMS), set(PARAMS) - used  # no stale entry
+    assert all(reason for _, _, reason in PARAMS.values())
+
+
+# ------------------------------------------------- the repairs, against JAX
+
+
+def test_get_K_crop_resize_positional_call_matches_jax():
+    """JAX's positional call (K, boxes, orig_size, crop_resize): the port
+    takes `orig_size` in the same place and, as JAX, does not use it."""
+    rs = np.random.RandomState(0)
+    xy = rs.rand(B, 2).astype(np.float32) * 200
+    boxes = np.concatenate([xy, xy + rs.rand(B, 2).astype(np.float32) * 150 + 20], -1)
+    j = jcam.get_K_crop_resize(jnp.asarray(_K(h=480, w=640)), jnp.asarray(boxes), (480, 640),
+                               (240, 320))
+    for orig in ((480, 640), (1, 1)):
+        t = tcam.get_K_crop_resize(torch.from_numpy(_K(h=480, w=640)), torch.from_numpy(boxes),
+                                   orig, (240, 320))
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [None, "float32", "float64"])
+def test_make_T_dtype_matches_jax(dtype):
+    import happypose_tpu.lib3d.transforms as jtr
+    import happypose_tpu_torch.lib3d.transforms as ttr
+
+    with jax.enable_x64(True):
+        rs = np.random.RandomState(1)
+        R = Rotation.random(B, random_state=rs).as_matrix().astype(np.float32)
+        t = rs.randn(B, 3)  # float64: cast to `dtype`, or to R's
+        j = jtr.make_T(jnp.asarray(R), jnp.asarray(t),
+                       dtype=None if dtype is None else getattr(jnp, dtype))
+        o = ttr.make_T(torch.from_numpy(R), torch.from_numpy(t),
+                       dtype=None if dtype is None else getattr(torch, dtype))
+        assert str(o.dtype).split(".")[-1] == str(j.dtype) == (dtype or "float32")
+        np.testing.assert_array_equal(o.numpy(), np.asarray(j))
+
+
+def _bench_like_db(jax_side: bool):
+    """A textured UV sphere (a procedural texture) and a box, as the JAX
+    graft entry's world, in one package's database."""
+    if jax_side:
+        from happypose_tpu.meshes import database, io
+    else:
+        from happypose_tpu_torch.meshes import database, io
+    sphere = io.make_uv_sphere(radius=0.05, n_lat=10, n_lon=12, with_uv=True)
+    sphere.texture = io.make_procedural_texture(64, seed=3)
+    return database.MeshDataBase({"sphere": sphere, "box": io.make_box_mesh((0.04, 0.03, 0.05))})
+
+
+@pytest.mark.parametrize("bake", [False, True])
+def test_render_assets_bake_textures_matches_jax(bake):
+    """`render_assets(bake_textures=True)` folds the texture into vertex
+    colours (no texture slot is used) as JAX does, to 1e-6."""
+    ja = _bench_like_db(True).render_assets(texture_size=64, bake_textures=bake)
+    ta = _bench_like_db(False).render_assets(texture_size=64, bake_textures=bake, device="cpu")
+    for f in dataclasses.fields(ta):
+        a, b = np.asarray(getattr(ja, f.name)), getattr(ta, f.name).numpy()
+        assert b.shape == a.shape, f.name
+        np.testing.assert_allclose(b, a, atol=1e-6, rtol=0, err_msg=f.name)
+    assert bool(ta.has_texture.any()) is not bake
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("n_points,aabb", [(96, False), (2000, False), (8, True)])
+def test_batched_seed_matches_jax(seed, n_points, aabb):
+    """JAX's `batched(seed=)` deletes the seed on entry (its subsample is
+    deterministic): whatever the seed, it gives the port's `batched`, which
+    takes none (`PARAMS`)."""
+    jm = _bench_like_db(True).batched(n_points=n_points, aabb=aabb, seed=seed)
+    tdb = _bench_like_db(False)
+    tm = tdb.batched(n_points=n_points, aabb=aabb, device="cpu")
+    for f in dataclasses.fields(tm):
+        np.testing.assert_array_equal(getattr(tm, f.name).numpy(), np.asarray(getattr(jm, f.name)),
+                                      err_msg=f.name)
+    with pytest.raises(TypeError, match="seed"):
+        tdb.batched(n_points=n_points, seed=seed, device="cpu")
+
+
+def test_pose_dataset_takes_the_jax_fields():
+    """`PoseDataset(..., apply_depth_augmentation=, apply_background_augmentation=)`
+    constructs in both packages with the same field order. Neither package's
+    batches get such augmentation, and JAX never reads the fields: the port
+    takes False, its default for both, and raises on True, where JAX's
+    default for the background (True) says what its batches do not get."""
+    from happypose_tpu.datasets.pose_dataset import PoseDataset as JaxPoseDataset
+    from happypose_tpu_torch.datasets.pose_dataset import PoseDataset
+
+    names = [f.name for f in dataclasses.fields(JaxPoseDataset)]
+    port = {f.name: f.default for f in dataclasses.fields(PoseDataset)}
+    assert [n for n in port if n in names] == names
+    for f in dataclasses.fields(JaxPoseDataset):
+        if f.name != "apply_background_augmentation":
+            assert port[f.name] == f.default, f.name
+    assert port["apply_background_augmentation"] is False
+    ds = PoseDataset(None, None, apply_depth_augmentation=False,
+                     apply_background_augmentation=False, device="cpu")
+    assert not ds.apply_depth_augmentation and not ds.apply_background_augmentation
+    for name in ("apply_depth_augmentation", "apply_background_augmentation"):
+        with pytest.raises(ValueError, match=name):
+            PoseDataset(None, None, device="cpu", **{name: True})
+    src = Path(happypose_tpu_torch.__file__).parent / "datasets" / "pose_dataset.py"
+    jsrc = Path(happypose_tpu.__file__).parent / "datasets" / "pose_dataset.py"
+    for text in (src.read_text(), jsrc.read_text()):
+        assert "self.apply_depth_augmentation" not in text
+        assert "self.apply_background_augmentation" not in text
