@@ -219,6 +219,17 @@ Phases (any failure raises, so the exit code is nonzero):
    launches a frame), the breakdown and `entry()`'s forward; their JSON
    lines; the kernel held to its plain version at the shapes they add
    (B = 4 textured, B = 4 and 20 of the pipeline, B = 64).
+40. The JAX package's run directories (`checkpoint.msgpack`, written here
+   by `utils/flax_msgpack.py` through the weight bridge, with the JAX
+   trainers' `config.json` keys): `run_eval --model from-checkpoints
+   --detections detector` serves megapose-RGB and the ResNet50-FPN detector
+   from them on phase 15's split (launches as the config implies, poses
+   equal bit for bit to the same models handed their state dicts); a
+   refiner's TrainState after 2 steps of `run_pose_training`, written in
+   JAX's layout, decoded (s, MB/s beside the card's name and power limit)
+   loaded into the same state as the port's own checkpoint (bit for bit)
+   and resumed for 2 steps beside that checkpoint's resume (the first
+   step's loss equal, the second's within `RESUME_SECOND_RTOL`).
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -231,6 +242,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3387,6 +3399,198 @@ def phase_sharded(dev, root: Path, scene: Path) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# ------------------------------------------------ the JAX package's run directories
+
+# the keys of `config.json` that the JAX package's training scripts write
+# (`vars(args)`, the pose trainer's with its `cfg` string)
+JAX_POSE_CONFIG = {
+    "run_dir": "", "model_type": "refiner", "backbone": "resnet34", "data": "synth",
+    "models_dir": None, "synth_set": "debug", "mesh_files": None, "max_faces": 0, "epochs": 2,
+    "epoch_size": 64, "batch_size": 8, "lr": 0.0003, "n_warmup_steps": 50, "n_iterations": 1,
+    "coarse_negatives": "grid", "coarse_hypotheses": 8, "add_iteration_epoch_interval": 0,
+    "n_iterations_max": 3, "render_size": [240, 320], "image_size": [480, 640], "eval_every": 0,
+    "save_every": 10, "no_augment": False, "stream": False, "stream_chunk": 512,
+    "resume": False, "init_from": None, "dp": False, "bf16": False, "profile": False, "cfg": "",
+}
+JAX_DETECTOR_CONFIG = {
+    "run_dir": "", "split_dir": "", "models_dir": None, "image_size": [240, 320], "epochs": 2,
+    "epoch_size": 32, "batch_size": 2, "max_gt": 8, "lr": 0.0001, "fpn_channels": 64,
+    "resume": False, "save_every": 5, "eval_interval": 0, "eval_frames": 8, "no_augment": False,
+}
+JAX_RESUME_BATCH = 8  # `run_pose_training --resume`: one step an epoch
+# the second resumed step's loss, JAX-format against the port's checkpoint
+# (7.8e-5 apart in the first run on the card): it follows the first step's
+# update, whose backward pass need not be deterministic there (the phase
+# runs the port's resume twice to show it); the loaded state and the first
+# step's loss are compared exactly
+RESUME_SECOND_RTOL = 1e-3
+DECODE_REPEATS = 3
+
+
+def _same_predictions(a: list, b: list) -> None:
+    assert len(a) == len(b)
+    for ra, rb in zip(a, b):
+        for k in ("poses", "obj_ids", "scores"):
+            assert np.array_equal(np.asarray(ra[k]), np.asarray(rb[k])), (
+                f"frame {ra['scene_id']}/{ra['view_id']}: {k} differ")
+
+
+def phase_jax_run_dirs(dev, root: Path, data: dict, kernel: dict) -> dict:
+    """40. The JAX package's run directories on the card: megapose-RGB
+    (ResNet34, 240x320 rgb + normals) refiner and coarse model and the
+    ResNet50-FPN detector (64 FPN channels), seeded weights of the port
+    carried over by the weight bridge and written by `flax_msgpack` with the
+    JAX trainers' `config.json` keys; `run_eval --model from-checkpoints
+    --detections detector` on phase 15's split serves them, and its poses
+    equal bit for bit those of the same models handed their state dicts
+    (no file); then a refiner trained 2 steps by `run_pose_training`, its
+    TrainState written in JAX's layout (Adam's state included) and decoded
+    (s, MB/s), loaded into the same state as the port's own checkpoint (weights,
+    Adam's moments, counts, bit for bit), and resumed by `run_pose_training
+    --resume` for 2 steps beside that checkpoint's resume: the first step's
+    loss equal, the second's within `RESUME_SECOND_RTOL`."""
+    from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
+    from happypose_tpu_torch.evaluation.prediction_runner import PredictionRunner
+    from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+    from happypose_tpu_torch.models.pose_predictor import PosePredictor
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+    from happypose_tpu_torch.scripts import run_eval as run_eval_cli
+    from happypose_tpu_torch.scripts import run_pose_training
+    from happypose_tpu_torch.training import TrainState, make_optimizer
+    from happypose_tpu_torch.utils import checkpoint as ckpt
+    from happypose_tpu_torch.utils import flax_msgpack
+    from happypose_tpu_torch.utils import load_model as lm
+    from happypose_tpu_torch.utils.weights_from_jax import (
+        detector_variables, pose_predictor_variables,
+    )
+
+    launches, figures = {}, {}
+    spec = lm.NAMED_MODELS["megapose-RGB"]
+    runs = root / "jax_runs"
+    sds = {}
+    for role, cfg, seed in (("refiner", spec.refiner_cfg, 0), ("coarse", spec.coarse_cfg, 1)):
+        sds[role] = _seeded_state_dict(cfg, seed)
+        lm.save_flax_run_dir(runs / role, pose_predictor_variables(sds[role], cfg.backbone), {
+            **JAX_POSE_CONFIG, "run_dir": str(runs / role), "model_type": role,
+            "backbone": cfg.backbone, "render_size": list(cfg.render_size), "cfg": str(cfg)})
+        assert not (runs / role / lm.STATE_DICT_FILE).exists()
+        back = lm.read_state_dict(runs / role)
+        assert back.keys() == sds[role].keys() and all(torch.equal(back[k], v)
+                                                       for k, v in sds[role].items())
+    obj_ds = BOPObjectDataset(data["models"])
+    det_cfg = DetectorConfig(n_classes=len(obj_ds.labels), fpn_channels=64)
+    det_sd = FCOSDetector(det_cfg).init_weights(torch.Generator().manual_seed(0)).state_dict()
+    det_dir = lm.save_flax_run_dir(root / "jax_detector", detector_variables(det_sd), {
+        **JAX_DETECTOR_CONFIG, "run_dir": str(root / "jax_detector"),
+        "split_dir": str(data["split"]), "models_dir": str(data["models"])})
+    spec = lm.spec_from_checkpoints({r: runs / r for r in ("refiner", "coarse")})
+    icfg = spec.inference_cfg
+
+    # served from the directories by the CLI, and from the state dicts (no file)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        rf.launches = 0
+        with _KernelInputs() as inputs:
+            res, t_cli = _timed(lambda: run_eval_cli.run([
+                "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
+                "--model", "from-checkpoints", "--checkpoints", str(runs),
+                "--detections", "detector", "--detector-run", str(det_dir),
+                "--detection-th", "0.0", "--out-dir", str(root / "eval_jax_runs"),
+                "--device", str(dev)]))
+        n = rf.launches
+        preds = res["predictions"]
+        est = lm.load_named_model(spec, obj_ds.mesh_db, state_dicts=sds, device=dev)
+        detector = lm.load_detector(det_cfg, state_dict=det_sd, image_size=(240, 320), device=dev)
+        runner = PredictionRunner(
+            scene_ds=BOPSceneDataset(data["split"]), estimator=est, mesh_db=obj_ds.mesh_db,
+            detection_type="detector", detector=detector, detection_th=0.0, device=str(dev))
+        direct, t_direct = _timed(lambda: runner.get_predictions()["final"])
+    n_det = [len(r["poses"]) for r in preds]
+    per_frame = [_frame_launches(icfg, D, icfg.SO3_grid_size) for D in n_det]
+    launches[f"run_eval from JAX run dirs, detector->megapose-RGB ({len(preds)} frames)"] = n
+    log(f"run_eval --model from-checkpoints on JAX-format run directories (megapose-RGB + "
+        f"detector, threshold 0): {len(preds)} frames, detections a frame {n_det}; raster_fused "
+        f"launches {n}, expected {sum(per_frame)} ({per_frame} a frame); the whole call with "
+        f"loading {t_cli:.2f} s, the same models from state dicts {t_direct:.2f} s")
+    assert len(preds) == N_EVAL_FRAMES and min(n_det) >= 1 and n == sum(per_frame)
+    assert all(np.isfinite(r["poses"]).all() for r in preds)
+    _same_predictions(preds, direct)
+    log("poses, object ids and scores from the JAX-format directories equal the directly "
+        "loaded models' bit for bit")
+    _check_new_shapes("jax_run_dirs", inputs, kernel)
+
+    # a TrainState in JAX's layout: decoded, then resumed beside the port's own checkpoint
+    trained = root / "jax_resume"
+    common = ["--data", "synth", "--synth-set", "textured", "--epoch-size", str(JAX_RESUME_BATCH),
+              "--batch-size", str(JAX_RESUME_BATCH), "--render-size", *map(str, RES),
+              "--image-size", *map(str, FRAME_RES), "--backbone", "resnet34",
+              "--n-iterations", "2", "--save-every", "1", "--device", str(dev)]
+    pt_dir, flax_dir = trained / "pt", trained / "flax"
+    assert run_pose_training.main(["--run-dir", str(pt_dir), "--epochs", "2"] + common) == 0
+    model = PosePredictor(lm.config_from_run_dir(pt_dir, coarse=False))
+    state = TrainState(model, make_optimizer(model.parameters(), lr=JAX_POSE_CONFIG["lr"],
+                                             n_warmup_steps=JAX_POSE_CONFIG["n_warmup_steps"]))
+    ckpt.load_checkpoint(pt_dir, state)
+    assert state.step == 2 and state.optimizer.count == 2
+    path, t_enc = _timed(lambda: ckpt.save_flax_checkpoint(
+        flax_dir, state, epoch=2, config=json.loads((pt_dir / "config.json").read_text())))
+    (flax_dir / "log.txt").write_text((pt_dir / "log.txt").read_text())
+    mb = path.stat().st_size / 1e6
+    decode = []
+    for _ in range(DECODE_REPEATS):
+        tree, t = _timed(lambda: flax_msgpack.read_file(path))
+        decode.append(t)
+    del tree
+    figures["train_state_mb"] = round(mb, 1)
+    figures["decode_s"] = decode
+    figures["decode_mb_per_s"] = round(mb / statistics.median(decode), 1)
+    log(f"{card_line()}: the JAX-format TrainState of the ResNet34 refiner (params, batch stats, "
+        f"Adam's mu and nu): {mb:.1f} MB, written in {t_enc:.3f} s; flax_msgpack.read_file "
+        f"{_fmt(decode)} s, {figures['decode_mb_per_s']} MB/s")
+    # both checkpoints load into the same state: weights, Adam's moments and counts
+    loaded = {}
+    for d in (pt_dir, flax_dir):
+        m = PosePredictor(lm.config_from_run_dir(d, coarse=False))
+        st = TrainState(m, make_optimizer(m.parameters(), lr=JAX_POSE_CONFIG["lr"],
+                                          n_warmup_steps=JAX_POSE_CONFIG["n_warmup_steps"]))
+        ckpt.load_checkpoint(d, st)
+        loaded[d.name] = (m.state_dict(), st.optimizer.adam.state_dict()["state"],
+                          st.optimizer.count, st.step)
+    (sd_a, adam_a, *counts_a), (sd_b, adam_b, *counts_b) = loaded["pt"], loaded["flax"]
+    assert counts_a == counts_b == [2, 2] and sd_a.keys() == sd_b.keys()
+    assert all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+    assert adam_a.keys() == adam_b.keys() and all(
+        torch.equal(adam_a[i][k], adam_b[i][k]) for i in adam_a for k in adam_a[i])
+    again = trained / "pt_again"  # the port's resume twice: is the second step reproducible?
+    shutil.copytree(pt_dir, again)
+    resumed = {}
+    for d in (pt_dir, flax_dir, again):
+        rf.launches = 0
+        rc, t = _timed(lambda: run_pose_training.main(
+            ["--run-dir", str(d), "--epochs", "4", "--resume"] + common))
+        lines = [json.loads(x) for x in (d / "log.txt").read_text().splitlines()]
+        resumed[d.name] = dict(rc=rc, launches=rf.launches, lines=lines, seconds=t)
+        launches[f"run_pose_training --resume from {d.name} (2 steps)"] = rf.launches
+    pt, fx = resumed["pt"], resumed["flax"]
+
+    def apart(a, b):  # the second resumed step's losses, relative
+        return abs(a["lines"][3]["loss"] - b["lines"][3]["loss"]) / abs(a["lines"][3]["loss"])
+
+    second, repeat = apart(pt, fx), apart(pt, resumed["pt_again"])
+    log(f"run_pose_training --resume, 2 steps: from the port's checkpoint losses "
+        f"{[x['loss'] for x in pt['lines'][2:]]} ({pt['seconds']:.2f} s), from the JAX-format "
+        f"TrainState {[x['loss'] for x in fx['lines'][2:]]} ({fx['seconds']:.2f} s): the first "
+        f"step's equal, the second's {second:.3g} apart; the port's resume run again: "
+        f"{[x['loss'] for x in resumed['pt_again']['lines'][2:]]}, the second {repeat:.3g} "
+        f"apart; launches {pt['launches']}, {fx['launches']} (expected {2 * 3})")
+    assert pt["rc"] == fx["rc"] == 0 and pt["launches"] == fx["launches"] == 2 * 3
+    assert [x["epoch"] for x in fx["lines"]] == [0, 1, 2, 3]
+    first_pt, first_fx = pt["lines"][2], fx["lines"][2]
+    assert all(first_pt[k] == first_fx[k] for k in first_pt if k != "time"), (first_pt, first_fx)
+    assert second < RESUME_SECOND_RTOL and math.isfinite(fx["lines"][3]["loss"])
+    figures["resume_second_step_rel"] = {"jax_format": second, "port_again": repeat}
+    return {"launches": launches, "figures": figures}
+
+
 def phase_bench(dev, kernel: dict) -> dict:
     """The port's measured entry points (`happypose_tpu_torch/bench.py`) at
     full width, in this process: `refiner_bench` at B = 16 and 64 (one
@@ -3535,6 +3739,10 @@ def main() -> None:
         bench_run = timed_phase(39, phase_bench, dev, kernel)
         launches.update(bench_run["launches"])
         log(f"bench phase 39: {seconds[39]:.1f} s; figures: " + json.dumps(bench_run["figures"]))
+        jax_dirs = timed_phase(40, phase_jax_run_dirs, dev, root, data, kernel)
+        launches.update(jax_dirs["launches"])
+        log(f"JAX run-directory phase 40: {seconds[40]:.1f} s; figures: "
+            + json.dumps(jax_dirs["figures"]))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",

@@ -9,8 +9,8 @@ score the whole grid and check whether one of the top K hypotheses lies
 within --rot-thresh-deg of the ground-truth rotation (min over the object's
 symmetries). `best_achievable` is the grid's own covering error on the
 same objects, the floor no classifier beats. The coarse model comes from a
-run directory of the port (`config.json` + `state_dict.pt`) and runs on
-`--device` (default `cuda`).
+run directory of the port (`config.json` + `state_dict.pt`) or of the JAX
+package (`checkpoint.msgpack`) and runs on `--device` (default `cuda`).
 
 Usage:
   python -m happypose_tpu_torch.scripts.eval_coarse_checkpoint \

@@ -9,8 +9,8 @@ ground truth's projected-point boxes.
 
 Needs a trained refiner and, optionally, a trained coarse classifier: run
 directories of the port written by `run_pose_training` on the SAME
-`--synth-set` / `--mesh-files` registry (`config.json` + `state_dict.pt`;
-the JAX package's msgpack checkpoints are not read). Without a coarse run
+`--synth-set` / `--mesh-files` registry (`config.json` + `state_dict.pt`),
+or the JAX package's (`checkpoint.msgpack`). Without a coarse run
 directory the pipeline runs the CosyPose flavour (detection-box z-up +
 autodepth init -> refiner), a refiner-only demo. Every render goes through
 the hand-written rasterizer on `--device` (default `cuda`).

@@ -11,7 +11,8 @@ Usage:
       --detector-run <det-run> --out-dir <out> [--device cuda]
 
 `--detector-run` is a run directory of the port (`config.json` +
-`state_dict.pt`, see `utils/load_model.py`).
+`state_dict.pt`) or of the JAX package (`checkpoint.msgpack`), see
+`utils/load_model.py`.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ BatchNorm in train mode (Flax's update of the running statistics), epochs
 of batches drawn with `np.random.RandomState(0)` as in the JAX package, a
 JSON-lines log (`log.txt`), checkpoints in the run-directory format of
 `utils/checkpoint.py` (which `load_detector(run_dir, n_classes)` and
-`run_eval --detections detector` read) and an optional mAP@0.5 on a few
-frames. A batch is a frame cropped to the aspect of `--image-size`, its
+`run_eval --detections detector` read; `--resume` also continues a run of
+the JAX package from its `checkpoint.msgpack`) and an optional mAP@0.5 on
+a few frames. A batch is a frame cropped to the aspect of `--image-size`, its
 boxes moved with the crop, and box-filling masks at a quarter of the
 resolution; the colours are jittered unless `--no-augment`. The split's
 uint8 frames are staged on `--device` (default `cuda`) once.
@@ -189,8 +190,9 @@ def main(argv=None) -> int:
 
     from happypose_tpu_torch.datasets.augmentations import rgb_jitter, sample_rgb_jitter
     from happypose_tpu_torch.datasets.bop import BOPObjectDataset, BOPSceneDataset
-    from happypose_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-    from happypose_tpu_torch.utils.load_model import STATE_DICT_FILE
+    from happypose_tpu_torch.utils.checkpoint import (
+        has_checkpoint, load_checkpoint, save_checkpoint,
+    )
 
     dev = torch.device(args.device)
     scene_ds = BOPSceneDataset(args.split_dir, cache_frames=True)
@@ -205,7 +207,7 @@ def main(argv=None) -> int:
     trainer = make_detector_trainer(n_classes, args.fpn_channels, args.lr, dev)
     state, step = trainer.state, trainer.step
     start_epoch = 0
-    if args.resume and (args.run_dir / STATE_DICT_FILE).exists():
+    if args.resume and has_checkpoint(args.run_dir):
         state, start_epoch = load_checkpoint(args.run_dir, state)
     rng = np.random.RandomState(0)
     maker.make(rng)  # the JAX package initializes its model on this batch: the same picks follow

@@ -7,8 +7,9 @@ run_full_megapose_eval.py:54-231 + evaluation/evaluation.py:79-277 (one
 
 PyTorch port of `happypose_tpu/scripts/run_eval.py`. Everything runs on
 `--device` (default `cuda`; nothing falls back to the CPU when there is no
-card). `--checkpoints` holds run directories of the port (`refiner/`,
-`coarse/`: `config.json` + `state_dict.pt`). Overrides of the named spec
+card). `--checkpoints` holds run directories (`refiner/`, `coarse/`:
+`config.json` + the port's `state_dict.pt` or the JAX package's
+`checkpoint.msgpack`). Overrides of the named spec
 are local to one call of `main`.
 
 Usage:

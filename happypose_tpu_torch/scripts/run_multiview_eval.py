@@ -11,8 +11,9 @@ one more a visible object, each a launch of the hand-written rasterizer on
 the card); `--record-dr N` records N domain-randomized multi-view scenes
 with the batched recorder. Candidates are the ground truth plus seeded
 noise, or with `--checkpoints` the single-view pipeline's predictions from
-run directories of the port (`refiner/`, `coarse/`). Everything runs on
-`--device` (default `cuda`; nothing falls back to the CPU).
+run directories of the port or the JAX package (`refiner/`, `coarse/`).
+Everything runs on `--device` (default `cuda`; nothing falls back to the
+CPU).
 
 Usage:
   python -m happypose_tpu_torch.scripts.run_multiview_eval \

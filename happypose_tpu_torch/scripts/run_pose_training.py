@@ -5,8 +5,9 @@ PyTorch port of `happypose_tpu/scripts/run_pose_training.py` (parity
 targets: the reference's train_megapose.py:96-459 and
 cosypose/training/train_pose.py:252-520): epochs of steps, a JSON-lines log
 (`log.txt`, one line an epoch with the JAX package's keys), checkpoints
-that are run directories of the port (`utils/checkpoint.py`), resume,
-warm start, the refiner's iteration curriculum and in-training evaluation.
+that are run directories of the port (`utils/checkpoint.py`), resume
+and warm start (`--resume`, `--init-from`: from the port's run directories
+or the JAX package's `checkpoint.msgpack`, its Adam state included), the refiner's iteration curriculum and in-training evaluation.
 
 Data: `--data synth` renders random scenes through the rasterizer on
 `--device` (default `cuda`; the hand-written kernel there, its plain
@@ -178,8 +179,10 @@ def train(args, dev, db, pose_ds, mesh=None) -> int:
     from happypose_tpu_torch.training.synth_data import (
         make_synth_batch, make_synth_mesh_db, sample_synth_scenes,
     )
-    from happypose_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-    from happypose_tpu_torch.utils.load_model import STATE_DICT_FILE, read_state_dict
+    from happypose_tpu_torch.utils.checkpoint import (
+        has_checkpoint, load_checkpoint, save_checkpoint,
+    )
+    from happypose_tpu_torch.utils.load_model import read_state_dict
     from happypose_tpu_torch.utils.profiling import device_trace
     from happypose_tpu_torch.utils.random import generator_for
 
@@ -246,7 +249,7 @@ def train(args, dev, db, pose_ds, mesh=None) -> int:
         model.parameters(), lr=args.lr, n_warmup_steps=args.n_warmup_steps,
         total_steps=total_steps))
     start_epoch = 0
-    if args.resume and (args.run_dir / STATE_DICT_FILE).exists():
+    if args.resume and has_checkpoint(args.run_dir):
         state, start_epoch = load_checkpoint(args.run_dir, state)
         logger.info(f"resumed from epoch {start_epoch}")
 

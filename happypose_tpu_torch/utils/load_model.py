@@ -1,13 +1,18 @@
 """Named-model registry + one-call loading (PyTorch port of
 `happypose_tpu/utils/load_model.py`). Weights are seeded, given as state
 dicts (e.g. carried over from Flax by `utils.weights_from_jax`), or read
-from a run directory of the port: `config.json` (the JAX package's keys:
-`backbone`, `render_size`, `bf16` for a pose model; `fpn_channels`,
-`image_size` for a detector) beside `state_dict.pt` (`torch.save` of a
-state dict, read with `weights_only=True`; `save_run_dir` writes both; a
-training run, `utils/checkpoint.py`, adds `state_dict_last.pt`, which is
-read when `state_dict.pt` is corrupt).
-Reading the JAX package's msgpack checkpoints needs Flax and is not ported.
+from a run directory: `config.json` (the JAX package's keys: `backbone`,
+`render_size`, `bf16` for a pose model; `fpn_channels`, `image_size` for a
+detector) beside the weights, in whichever of two formats the directory
+holds (`read_state_dict`):
+- the port's: `state_dict.pt` (`torch.save` of a state dict, read with
+  `weights_only=True`; `save_run_dir` writes it; a training run,
+  `utils/checkpoint.py`, adds `state_dict_last.pt`);
+- the JAX package's: `checkpoint.msgpack` (Flax's msgpack of a TrainState
+  or of `{"params", "batch_stats"}`, decoded by `utils.flax_msgpack`
+  without Flax and carried over by `utils.weights_from_jax`; its training
+  runs add `checkpoint_last.msgpack`; `save_flax_run_dir` writes one).
+A corrupt first file falls back to its `_last` copy.
 
 Every render goes where its tensors live: a model loaded on a CUDA device
 renders with the hand-written CUDA rasterizer, a model on the CPU with its
@@ -37,7 +42,12 @@ from happypose_tpu_torch.models.pose_predictor import (
     PosePredictor,
     PosePredictorConfig,
 )
+from happypose_tpu_torch.utils import flax_msgpack
 from happypose_tpu_torch.utils.logging import get_logger
+from happypose_tpu_torch.utils.weights_from_jax import (
+    detector_state_dict,
+    pose_predictor_state_dict,
+)
 
 logger = get_logger(__name__)
 
@@ -92,8 +102,10 @@ NAMED_MODELS: Dict[str, NamedModelSpec] = {
 
 
 STATE_DICT_FILE = "state_dict.pt"
-# what `torch.load` raises for a truncated or corrupt file
-UNREADABLE = (RuntimeError, EOFError, OSError, pickle.UnpicklingError)
+FLAX_FILE = "checkpoint.msgpack"  # the JAX package's `utils/checkpoint.py`
+# what `torch.load` and `flax_msgpack.read_file` raise for a truncated or corrupt file
+UNREADABLE = (RuntimeError, EOFError, OSError, pickle.UnpicklingError,
+              flax_msgpack.FlaxMsgpackError)
 
 
 def save_run_dir(
@@ -118,20 +130,69 @@ def last_copy(path: Path) -> Path:
     return path.with_name(f"{path.stem}_last{path.suffix}")
 
 
+def weights_format(run_dir: Union[str, Path]) -> str:
+    """"pt" when the run directory holds `state_dict.pt` (or its `_last`
+    copy), else "flax" when it holds `checkpoint.msgpack` (or its `_last`
+    copy); raises `FileNotFoundError` naming both otherwise."""
+    run_dir = Path(run_dir)
+    for fmt, name in (("pt", STATE_DICT_FILE), ("flax", FLAX_FILE)):
+        if (run_dir / name).exists() or last_copy(run_dir / name).exists():
+            return fmt
+    raise FileNotFoundError(
+        f"no {STATE_DICT_FILE} and no {FLAX_FILE} in {run_dir}: a run directory is "
+        "config.json beside the port's state_dict.pt or the JAX package's checkpoint.msgpack"
+    )
+
+
+def read_first(run_dir: Union[str, Path], name: str, read):
+    """`read(path)` of `run_dir/name`, or of its `_last` copy when the first
+    is missing or unreadable; the last error when neither can be read."""
+    path = Path(run_dir) / name
+    err = None
+    for p in (path, last_copy(path)):
+        if not p.exists():
+            continue
+        try:
+            return read(p)
+        except UNREADABLE as e:
+            logger.warning(f"{p} unreadable ({e}); trying its _last copy")
+            err = e
+    raise err if err is not None else FileNotFoundError(f"no {name} in {run_dir}")
+
+
+def flax_tree_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a decoded Flax checkpoint (a TrainState's other
+    keys, `step` and `opt_state`, are not read): a detector's when its
+    params hold the `ResNet50FPN_0` backbone, else a pose predictor's."""
+    if "ResNet50FPN_0" in tree["params"]:
+        return detector_state_dict(tree)
+    return pose_predictor_state_dict(tree)
+
+
 def read_state_dict(run_dir: Union[str, Path]) -> Dict[str, torch.Tensor]:
-    path = Path(run_dir) / STATE_DICT_FILE
-    if not path.exists():
-        raise FileNotFoundError(
-            f"no {STATE_DICT_FILE} in {run_dir}: a run directory of the port "
-            "is config.json beside state_dict.pt"
-        )
-    try:
-        return torch.load(path, map_location="cpu", weights_only=True)
-    except UNREADABLE as e:
-        if not last_copy(path).exists():
-            raise
-        logger.warning(f"{path} unreadable ({e}); reading {last_copy(path).name}")
-        return torch.load(last_copy(path), map_location="cpu", weights_only=True)
+    """The weights of a run directory as a state dict of the port: from
+    `state_dict.pt`, else from the JAX package's `checkpoint.msgpack`
+    through the weight bridge (`weights_format`)."""
+    if weights_format(run_dir) == "pt":
+        return read_first(run_dir, STATE_DICT_FILE,
+                          lambda p: torch.load(p, map_location="cpu", weights_only=True))
+    return flax_tree_state_dict(read_first(run_dir, FLAX_FILE, flax_msgpack.read_file))
+
+
+def save_flax_run_dir(
+    run_dir: Union[str, Path],
+    variables: Mapping[str, object],
+    config: Mapping[str, object],
+) -> Path:
+    """Write a run directory in the JAX package's format: `config.json` +
+    `checkpoint.msgpack` of Flax `variables` (e.g.
+    `utils.weights_from_jax.model_variables(model)`), which the JAX
+    package's `load_named_model` and `load_detector` read."""
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.json").write_text(json.dumps(dict(config), default=str))
+    flax_msgpack.write_file(run_dir / FLAX_FILE, dict(variables))
+    return run_dir
 
 
 def config_from_run_dir(run_dir: Union[str, Path], coarse: bool) -> PosePredictorConfig:
@@ -219,7 +280,7 @@ def load_detector(
     `cfg` is a `DetectorConfig`, or a run directory with `n_classes` (as the
     JAX package's `load_detector(run_dir, n_classes)`): its `config.json`
     gives `fpn_channels` (default 64) and `image_size`, its `state_dict.pt`
-    the weights. Otherwise weights are fresh and seeded from `seed` unless
+    or the JAX package's `checkpoint.msgpack` the weights. Otherwise weights are fresh and seeded from `seed` unless
     `state_dict` gives them, e.g. from
     `utils.weights_from_jax.detector_state_dict`. The detector's class
     indices must be the mesh database's object ids."""

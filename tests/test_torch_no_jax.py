@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of `happypose_tpu_torch`
-loads neither JAX, Flax nor the JAX package."""
+loads neither JAX, Flax, msgpack nor the JAX package."""
 
 import pkgutil
 import subprocess
@@ -45,14 +45,14 @@ def test_port_imports_no_jax():
                  "scripts.preprocess_object_dataset", "scripts.download",
                  "scripts.run_accuracy_demo", "parallel", "parallel.distributed",
                  "parallel.mesh", "parallel.collectives", "lib3d", "meshes", "datasets",
-                 "inference", "evaluation"):
+                 "inference", "evaluation", "utils.flax_msgpack"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'happypose_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack', 'happypose_tpu'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
