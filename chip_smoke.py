@@ -107,7 +107,7 @@ Phases (any failure raises, so the exit code is nonzero):
    `run_detection_eval` on the same split (COCO json read back, `n_gt` =
    the instances written).
 18. `run_eval` cut to 64x128 renders, a 72-rotation grid, top-2, 2
-   iterations and 2 frames, `--device cuda` against `--device cpu`.
+   iterations and 1 frame, `--device cuda` against `--device cpu`.
 19. `run_inference_on_example --make-example` on the card: the three
    output files exist and the overlay PNG decodes.
 20. Training at full width from seeded weights on the "textured" synthetic
@@ -191,8 +191,8 @@ Phases (any failure raises, so the exit code is nonzero):
    against the CPU (one iteration, `CUT_LIMITS`).
 36. Serving them: `run_pose_training --backbone efficientnet_b3` (refiner,
    coarse) and `--backbone flownet` (refiner) at 240x320 / 480x640, 2
-   steps each, then `run_accuracy_demo` at megapose-RGB's width on 2
-   batches of 16 scenes: EfficientNet-B3 refiner + coarse (576-rotation
+   steps each, then `run_accuracy_demo` at megapose-RGB's width on 1
+   batch of 16 scenes: EfficientNet-B3 refiner + coarse (576-rotation
    grid, top-5, 5 iterations) and the FlowNetS refiner alone; launches as
    the configs imply, s a batch, the coarse / refiner / scoring split, peak
    memory. Every shape the demo launches at (the 768-face "textured" set
@@ -215,21 +215,45 @@ Phases (any failure raises, so the exit code is nonzero):
    the whole database's (bit-equal).
 39. The port's measured entry points (`happypose_tpu_torch/bench.py`):
    refiner pose-iterations/s at B = 16 and 64 (bfloat16, one launch an
-   iteration), detector -> megapose-RGB s/image at D = 4 (8 images, 19
-   launches a frame), the breakdown and `entry()`'s forward; their JSON
-   lines; the kernel held to its plain version at the shapes they add
-   (B = 4 textured, B = 4 and 20 of the pipeline, B = 64).
+   iteration, through the stage graph `_refine_fn`: the warm-up's and the
+   capture's launches counted by the wrapper, the replays' on the device),
+   detector -> megapose-RGB s/image at D = 4 (8 images, 19 launches a
+   frame, through `run_inference_pipeline_jit`: the wrapper counts its
+   warm-up and capture, 2 x 19), the breakdown and `entry()`'s forward;
+   their JSON lines; the kernel held to its plain version at the shapes
+   they add (B = 4 textured, B = 4 and 20 of the pipeline, B = 64).
 40. The JAX package's run directories (`checkpoint.msgpack`, written here
    by `utils/flax_msgpack.py` through the weight bridge, with the JAX
    trainers' `config.json` keys): `run_eval --model from-checkpoints
    --detections detector` serves megapose-RGB and the ResNet50-FPN detector
-   from them on phase 15's split (launches as the config implies, poses
+   from them on 4 frames of phase 15's split (launches as the config implies, poses
    equal bit for bit to the same models handed their state dicts); a
    refiner's TrainState after 2 steps of `run_pose_training`, written in
    JAX's layout, decoded (s, MB/s beside the card's name and power limit)
    loaded into the same state as the port's own checkpoint (bit for bit)
    and resumed for 2 steps beside that checkpoint's resume (the first
    step's loss equal, the second's within `RESUME_SECOND_RTOL`).
+41. The compiled entry points as CUDA graphs (`utils/cuda_graphs.py`),
+   each beside its eager path in one call (TF32 off): the bench's
+   `--pipeline` frame (the detector's graph, then megapose-RGB's frame
+   graph at D = 4), cosypose-RGB behind the graphed detector on the
+   480x640 frame, megapose-RGB + ICP and + "teaserpp" (the depth refiner
+   inside the frame's graph), D = 2, 4, 2 on one estimator (one pool; the
+   first call's results untouched by the later replays), and the refiner
+   bench's iteration through the stage graph at B = 16, and
+   `forward_coarse_jit` at D = 2. Each graph is captured on one seeded
+   frame and replayed on another (other image, depth and boxes): every
+   result equal to eager on the same frame (`GRAPH_ATOL`); the wrapper's
+   launches of the first call (the warm-up's and the capture's, 2 x
+   `bench.frame_launches`); a replay's launches counted on the device (the
+   `raster_kernel`s of its `torch.profiler` trace, as many as
+   `bench.frame_launches`; "replay_launches_traced" in the kernels line);
+   s/image (or s/iteration) of both in turns, the first call's seconds
+   (warm-up, capture, first replay), the graph pool's bytes and the busy
+   share. Every `PredictionRunner` path of the phases above (run_eval,
+   the multiview candidates, the JAX run directories) serves one frame
+   graph a detection count, so the wrapper counts the first frame of each
+   count twice and the replays not at all (`_runner_launches`).
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -283,6 +307,17 @@ KERNEL_SHAPES = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def cuda_call_ms(fn) -> tuple:
+    """(fn(), the device time of that one call in ms, CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, n_runs: int, n_warmup: int = 1) -> float:
@@ -454,8 +489,9 @@ def _agreement(out, ref):
 def _check_shape(name: str, A, bbox, res, n_plain=None, min_hit=None) -> tuple:
     """One kernel shape: the face lists against `bin_faces_reference`, the
     output against `raster_fused_reference` (all images, or the first
-    `n_plain`), a pool too small for the lists, then the time beside the
-    bound. Returns (the shape's record, max abs err)."""
+    `n_plain`; the plain version's time is that of the compared call), a
+    pool too small for the lists, then the time beside the bound. Returns
+    (the shape's record, max abs err)."""
     from happypose_tpu_torch.ops import rasterizer_fused as rf
 
     out = rf.raster_fused(A, bbox, res)
@@ -478,8 +514,9 @@ def _check_shape(name: str, A, bbox, res, n_plain=None, min_hit=None) -> tuple:
         assert frac == 1.0 and err == 0.0, f"{name}: pool of {cap} changes the result"
 
     if n_plain is None:
-        ref = rf.raster_fused_reference(A, bbox, res)
-        plain_ms = cuda_ms(lambda: rf.raster_fused_reference(A, bbox, res), n_runs=3)
+        # one call: the plain version takes 0.01-4 s a shape, and the script
+        # holds some 30 shapes
+        ref, plain_ms = cuda_call_ms(lambda: rf.raster_fused_reference(A, bbox, res))
         shape["plain_ms"] = plain_ms
         hit = (ref[:, 0] > 0).float().mean().item()
         # a crop is filled by its object; in a frame the objects are small
@@ -607,6 +644,19 @@ def _frame_launches(cfg, D: int, grid_size=None) -> int:
     if grid_size is None:
         return math.ceil(D / cfg.bsz_objects) * (cfg.n_coarse_iterations + cfg.n_refiner_iterations)
     return frame_launches(cfg, D, grid_size)
+
+
+def _runner_launches(per_frame) -> int:
+    """The wrapper's launches over frames that `PredictionRunner` served,
+    given as (D, launches of the frame): the runner serves one CUDA graph a
+    detection count, whose first frame runs the frame twice through the
+    wrapper (the capture's warm-up, then the capture); a replay runs no
+    Python and adds nothing (phase 41 counts a replay's launches on the
+    device)."""
+    first = {}
+    for D, n in per_frame:
+        first.setdefault(D, n)
+    return 2 * sum(first.values())
 
 
 def _megapose_launches(est, D: int) -> int:
@@ -1398,7 +1448,11 @@ def phase_bop_dataset(dev, root: Path, kernel: dict) -> dict:
 
 class _GroundTruthEstimator:
     """Stands in for a `PoseEstimator`: answers every frame with its
-    ground-truth poses (the runner asks frame by frame, in order)."""
+    ground-truth poses (the runner asks frame by frame, in order, through
+    the graphed pipeline of an estimator without a device mesh)."""
+
+    device_mesh = None
+    _pipeline_jit_cache = ()  # no graphs: no frame key is ever added
 
     def __init__(self, scene_ds, mesh_db, dev):
         self.scene_ds, self.mesh_db, self.dev, self.next = scene_ds, mesh_db, dev, 0
@@ -1418,6 +1472,8 @@ class _GroundTruthEstimator:
             scores=det.scores, coarse_logits=det.scores, pose_logits=det.scores,
             valid=torch.ones(n, dtype=torch.bool, device=self.dev),
         )}
+
+    run_inference_pipeline_jit = run_inference_pipeline
 
 
 def phase_run_eval(dev, root: Path, data: dict, s_per_image: float) -> int:
@@ -1444,11 +1500,11 @@ def phase_run_eval(dev, root: Path, data: dict, s_per_image: float) -> int:
     assert n_frames == N_EVAL_FRAMES
     cfg = registry["megapose-RGB"].inference_cfg
     per_frame = [_frame_launches(cfg, D, cfg.SO3_grid_size) for D in data["n_per_frame"]]
-    expected = sum(per_frame) + 2 * n_frames
+    expected = _runner_launches(zip(data["n_per_frame"], per_frame)) + 2 * n_frames
     log(f"run_eval megapose-RGB gt --bop19: {n_frames} frames, {data['n_instances']} instances; "
         f"raster_fused launches {launches}, expected {expected} "
-        f"({per_frame} a frame + 2 a "
-        f"scored image)")
+        f"({per_frame} a frame, the first of each D twice: the capture's warm-up and the "
+        f"capture; + 2 a scored image)")
     assert launches == expected, f"kernel launches {launches} != {expected}"
     for rec, D in zip(preds, data["n_per_frame"]):
         assert rec["poses"].shape == (D, 4, 4) and np.isfinite(rec["poses"]).all()
@@ -1461,9 +1517,13 @@ def phase_run_eval(dev, root: Path, data: dict, s_per_image: float) -> int:
     assert d_csv < 1e-6, f"the csv's poses differ from the runner's by {d_csv}"
     times = summary["frame_seconds"]
     assert times == on_disk["frame_seconds"]
-    warm = {D: [t for t, d in zip(times[1:], data["n_per_frame"][1:]) if d == D] for D in (2, 3)}
+    # the first frame of each D includes its capture
+    firsts = [data["n_per_frame"].index(D) for D in (2, 3)]
+    warm = {D: [t for i, (t, d) in enumerate(zip(times, data["n_per_frame"]))
+                if d == D and i not in firsts] for D in (2, 3)}
     log(f"run_eval: get_predictions {summary['eval_seconds_predictions']:.3f} s for {n_frames} "
-        f"frames (first frame {times[0]:.3f} s; warm s/frame D=2 {_fmt(warm[2])}, D=3 "
+        f"frames (first frames of D=2 and 3, captures included, "
+        f"{[round(times[i], 3) for i in firsts]} s; warm s/frame D=2 {_fmt(warm[2])}, D=3 "
         f"{_fmt(warm[3])}; phase 4 read {s_per_image:.4f} s/image at D=2); metrics "
         f"{summary['eval_seconds_metrics']:.3f} s ({summary['eval_seconds_metrics'] / n_frames:.4f} "
         f"s a scored image); the whole call with loading {t_all:.2f} s; summary "
@@ -1532,7 +1592,7 @@ def phase_detector_eval(dev, root: Path, data: dict) -> int:
     launches = rf.launches
     preds, summary = res["predictions"], res["summary"]
     n_det = [len(r["poses"]) for r in preds]
-    expected = sum(_frame_launches(spec.inference_cfg, D) for D in n_det)
+    expected = _runner_launches((D, _frame_launches(spec.inference_cfg, D)) for D in n_det)
     times = summary["frame_seconds"]
     log(f"run_eval cosypose-RGB, detector in front (threshold 0), run directories: "
         f"{len(preds)} frames, detections a frame {n_det}; raster_fused launches {launches}, "
@@ -1559,7 +1619,7 @@ def phase_detector_eval(dev, root: Path, data: dict) -> int:
 
 def phase_run_eval_cross_check(dev, root: Path, data: dict) -> None:
     """`run_eval` cut to 64x128 renders, a 72-rotation grid, top-2, 2
-    iterations and 2 frames, on the card and on the CPU, from one pair of
+    iterations and 1 frame, on the card and on the CPU, from one pair of
     run directories: poses in the csv to 1e-4 m / 1e-4 in rotation entries
     for every row whose final score agrees to 1e-3 (the same hypothesis
     won on both devices)."""
@@ -1579,7 +1639,7 @@ def phase_run_eval_cross_check(dev, root: Path, data: dict) -> None:
         run_eval_cli.main([
             "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
             "--model", "from-checkpoints", "--checkpoints", str(ckpt), "--so3-grid", "72",
-            "--n-pose-hypotheses", "2", "--n-refiner-iterations", "2", "--max-frames", "2",
+            "--n-pose-hypotheses", "2", "--n-refiner-iterations", "2", "--max-frames", "1",
             "--out-dir", str(out_dir), "--device", d])
         csvs.append(load_bop_csv(out_dir / "preds_rank0.csv"))
     g, c = csvs
@@ -1993,7 +2053,8 @@ def phase_train_cli(dev, root: Path, data: dict) -> dict:
         "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
         "--model", "from-checkpoints", "--checkpoints", str(runs), "--max-frames", "2",
         "--out-dir", str(root / "eval_trained"), "--device", str(dev)]))
-    expected = sum(_frame_launches(icfg, D, icfg.SO3_grid_size) for D in data["n_per_frame"][:2])
+    expected = _runner_launches((D, _frame_launches(icfg, D, icfg.SO3_grid_size))
+                                for D in data["n_per_frame"][:2])
     launches["run_eval from-checkpoints, trained runs (2 frames)"] = rf.launches
     poses = [r["poses"] for r in res["predictions"]]
     log(f"run_eval --model from-checkpoints on the trained runs: {t:.2f} s, {len(poses)} frames, "
@@ -2396,7 +2457,7 @@ def phase_training_clis(dev, root: Path, split: dict) -> dict:
         "--device", str(dev)]))
     preds = res["predictions"]
     n_det = [len(r["poses"]) for r in preds]
-    expected = sum(_frame_launches(spec.inference_cfg, D) for D in n_det)
+    expected = _runner_launches((D, _frame_launches(spec.inference_cfg, D)) for D in n_det)
     launches["run_eval cosypose-RGB, trained detector (2 frames)"] = rf.launches
     log(f"run_eval --model cosypose-RGB --detections detector (the trained run): {t:.2f} s, "
         f"detections a frame {n_det}, launches {rf.launches} (expected {expected})")
@@ -2633,7 +2694,8 @@ def phase_multiview_pipeline(dev, root: Path, scene: Path, kernel: dict) -> dict
             n = rf.launches
     finally:
         mv._pipeline_candidates = pipeline
-    expected = sum(_frame_launches(icfg, D, icfg.SO3_grid_size) for D in n_per_view)
+    expected = _runner_launches((D, _frame_launches(icfg, D, icfg.SO3_grid_size))
+                                for D in n_per_view)
     launches[f"run_multiview_eval --checkpoints ({MV_VIEWS} views)"] = n
     (preds,) = candidates
     log(f"run_multiview_eval --checkpoints (phase 24's runs): {t:.2f} s, launches {n} (expected "
@@ -2652,7 +2714,7 @@ def phase_multiview_pipeline(dev, root: Path, scene: Path, kernel: dict) -> dict
         rf.launches = 0
         preds, t = _timed(lambda: mv._pipeline_candidates(obs, est, db, dev))
         n = rf.launches
-    expected = sum(_frame_launches(cfg, D) for D in n_per_view)
+    expected = _runner_launches((D, _frame_launches(cfg, D)) for D in n_per_view)
     launches[f"_pipeline_candidates cosypose-RGB ({MV_VIEWS} views)"] = n
     assert n == expected and all(np.isfinite(r["poses"]).all() for r in preds.values())
     poses = [p for v in sorted(preds) for p in preds[v]["poses"]]
@@ -2912,9 +2974,9 @@ BACKBONE_TRAINING = (  # (backbone, role, compute dtype)
 )
 # `run_pose_training` with the new backbones: epochs, epoch size, batch
 BB_CLI_EPOCHS, BB_CLI_EPOCH_SIZE, BB_CLI_BATCH = 1, 16, 8
-# `run_accuracy_demo` at megapose-RGB's width: 32 scenes in batches of 16,
+# `run_accuracy_demo` at megapose-RGB's width: 16 scenes in one batch,
 # the 576-rotation grid, top-5, 5 refiner iterations
-DEMO_SCENES, DEMO_BATCH, DEMO_GRID, DEMO_HYPOTHESES, DEMO_ITERATIONS = 32, 16, 576, 5, 5
+DEMO_SCENES, DEMO_BATCH, DEMO_GRID, DEMO_HYPOTHESES, DEMO_ITERATIONS = 16, 16, 576, 5, 5
 
 
 def phase_backbone_training(dev) -> tuple:
@@ -3418,6 +3480,7 @@ JAX_DETECTOR_CONFIG = {
     "resume": False, "save_every": 5, "eval_interval": 0, "eval_frames": 8, "no_augment": False,
 }
 JAX_RESUME_BATCH = 8  # `run_pose_training --resume`: one step an epoch
+JAX_DIR_FRAMES = 4  # frames of phase 15's split served from the JAX-format directories
 # the second resumed step's loss, JAX-format against the port's checkpoint
 # (7.8e-5 apart in the first run on the card): it follows the first step's
 # update, whose backward pass need not be deterministic there (the phase
@@ -3441,7 +3504,8 @@ def phase_jax_run_dirs(dev, root: Path, data: dict, kernel: dict) -> dict:
     ResNet50-FPN detector (64 FPN channels), seeded weights of the port
     carried over by the weight bridge and written by `flax_msgpack` with the
     JAX trainers' `config.json` keys; `run_eval --model from-checkpoints
-    --detections detector` on phase 15's split serves them, and its poses
+    --detections detector` on the first `JAX_DIR_FRAMES` frames of phase 15's
+    split serves them, and its poses
     equal bit for bit those of the same models handed their state dicts
     (no file); then a refiner trained 2 steps by `run_pose_training`, its
     TrainState written in JAX's layout (Adam's state included) and decoded
@@ -3494,24 +3558,27 @@ def phase_jax_run_dirs(dev, root: Path, data: dict, kernel: dict) -> dict:
                 "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
                 "--model", "from-checkpoints", "--checkpoints", str(runs),
                 "--detections", "detector", "--detector-run", str(det_dir),
-                "--detection-th", "0.0", "--out-dir", str(root / "eval_jax_runs"),
-                "--device", str(dev)]))
+                "--detection-th", "0.0", "--max-frames", str(JAX_DIR_FRAMES),
+                "--out-dir", str(root / "eval_jax_runs"), "--device", str(dev)]))
         n = rf.launches
         preds = res["predictions"]
         est = lm.load_named_model(spec, obj_ds.mesh_db, state_dicts=sds, device=dev)
         detector = lm.load_detector(det_cfg, state_dict=det_sd, image_size=(240, 320), device=dev)
         runner = PredictionRunner(
             scene_ds=BOPSceneDataset(data["split"]), estimator=est, mesh_db=obj_ds.mesh_db,
-            detection_type="detector", detector=detector, detection_th=0.0, device=str(dev))
+            detection_type="detector", detector=detector, detection_th=0.0, device=str(dev),
+            max_frames=JAX_DIR_FRAMES)
         direct, t_direct = _timed(lambda: runner.get_predictions()["final"])
     n_det = [len(r["poses"]) for r in preds]
     per_frame = [_frame_launches(icfg, D, icfg.SO3_grid_size) for D in n_det]
+    expected = _runner_launches(zip(n_det, per_frame))
     launches[f"run_eval from JAX run dirs, detector->megapose-RGB ({len(preds)} frames)"] = n
     log(f"run_eval --model from-checkpoints on JAX-format run directories (megapose-RGB + "
         f"detector, threshold 0): {len(preds)} frames, detections a frame {n_det}; raster_fused "
-        f"launches {n}, expected {sum(per_frame)} ({per_frame} a frame); the whole call with "
-        f"loading {t_cli:.2f} s, the same models from state dicts {t_direct:.2f} s")
-    assert len(preds) == N_EVAL_FRAMES and min(n_det) >= 1 and n == sum(per_frame)
+        f"launches {n}, expected {expected} ({per_frame} a frame, the first of each D twice: "
+        f"the capture's warm-up and the capture); the whole call with loading {t_cli:.2f} s, the same models "
+        f"from state dicts {t_direct:.2f} s")
+    assert len(preds) == JAX_DIR_FRAMES and min(n_det) >= 1 and n == expected
     assert all(np.isfinite(r["poses"]).all() for r in preds)
     _same_predictions(preds, direct)
     log("poses, object ids and scores from the JAX-format directories equal the directly "
@@ -3613,28 +3680,35 @@ def phase_bench(dev, kernel: dict) -> dict:
         with _KernelInputs() as inputs:
             line, notes = bench.refiner_bench(batch=B, device=dev)
         count = rf.launches
-        assert notes["launches"] == 1 + n and count == 1 + 2 * n, (notes["launches"], count)
+        # the warm call captures the stage graph (its warm-up and the capture
+        # launch through the wrapper); the replays are counted on the device
+        assert notes["launches"] == count == 2, (notes["launches"], count)
+        assert notes["profile"]["raster_kernels"] == n, notes["profile"]
         assert torch.isfinite(notes["TCO"]).all()
         assert notes["compute_dtype"] == bench.precision("bfloat16"), notes["compute_dtype"]
         launches[f"bench refiner B={B}"] = count
         figures[f"refiner_b{B}"] = {"line": line, "seconds": notes["seconds"],
                                     "profile": notes["profile"]}
-        log(f"bench refiner B={B}: {json.dumps(line)}; {count} launches (1 warm + {n} timed + "
-            f"{n} profiled); profiled window {json.dumps(notes['profile'])}")
+        log(f"bench refiner B={B}: {json.dumps(line)}; {count} wrapper launches (the capture's "
+            f"warm-up and the capture); {notes['profile']['raster_kernels']} raster kernels in "
+            f"the device trace of the {n} profiled replays; profiled window "
+            f"{json.dumps(notes['profile'])}")
         _check_new_shapes(f"bench_refiner_B{B}", inputs, kernel, held=set(held))
 
     rf.launches = 0
     with _KernelInputs() as inputs:
         line, notes = bench.pipeline_bench(n_images=8, device=dev)
-    count, expected = rf.launches, notes["frames"] * notes["launches_per_frame"]
+    # the warm frame captures the frame's graph: its warm-up and the capture
+    # launch through the wrapper, the replays inside the graph
+    count, expected = rf.launches, 2 * notes["launches_per_frame"]
     assert notes["launches_per_frame"] == 19, notes["launches_per_frame"]  # 8 + 2 x 5 + 1 at D = 4
     assert count == notes["launches"] == expected, (count, notes["launches"], expected)
     final = notes["results"]["final"]
     assert int(final.valid.sum()) == 4 and torch.isfinite(final.poses).all()
-    launches["bench --pipeline (9 frames)"] = count
+    launches["bench --pipeline (9 frames, warm-up and capture)"] = count
     figures["pipeline"] = line
-    log(f"bench pipeline: {json.dumps(line)}; {count} launches ({notes['launches_per_frame']} a "
-        f"frame x {notes['frames']} frames)")
+    log(f"bench pipeline: {json.dumps(line)}; {count} wrapper launches ({notes['launches_per_frame']} "
+        f"a frame, the capture's warm-up and the capture; {notes['frames']} replays)")
     _check_new_shapes("bench_pipeline", inputs, kernel, held=set(held))
 
     rf.launches = 0
@@ -3658,8 +3732,349 @@ def phase_bench(dev, kernel: dict) -> dict:
     return {"launches": launches, "figures": figures}
 
 
+# ----------------------------------------------------------------- graphs (41)
+
+GRAPH_REPEATS = 2  # timed calls of each path, eager and graph in turn
+# graph against eager: bit for bit (the same kernels and the same cuDNN
+# algorithms under capture; TF32 off)
+GRAPH_ATOL = 0.0
+
+
+def _results_diff(a: dict, b: dict) -> float:
+    """The largest difference between two pipeline results over every
+    stage and float field (infinite logits compare as equal where both are
+    the same infinity); the other fields must be equal."""
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    worst = 0.0
+    for k in a:
+        for f in dataclasses.fields(a[k]):
+            x, y = getattr(a[k], f.name), getattr(b[k], f.name)
+            assert x.shape == y.shape, (k, f.name, x.shape, y.shape)
+            if x.is_floating_point():
+                d = torch.where(x == y, 0.0, (x - y).abs())
+                worst = max(worst, float(d.max()) if d.numel() else 0.0)
+            else:
+                assert torch.equal(x, y), (k, f.name)
+    return worst
+
+
+def _in_turns(eager, graph, n=GRAPH_REPEATS):
+    """Seconds of `eager()` and `graph()` on the host clock around
+    synchronized calls, in the order eager, graph, graph, eager, ..."""
+    times = {"eager": [], "graph": []}
+    for i in range(n):
+        for name in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            times[name].append(_timed(eager if name == "eager" else graph)[1])
+    return times
+
+
+def _eager_detector(detector):
+    """The same detector with its forward run eagerly (no graph)."""
+    from happypose_tpu_torch.inference.detector import Detector
+
+    eager = Detector(detector.model, image_size=detector.image_size)
+    eager._forward = eager.model
+    return eager
+
+
+def _graph_check(name, est, expected, figures, launches, traced, run, run_eager, frames):
+    """One path through its frame graph: `run(frames[0])` captures (timed,
+    the wrapper's launches counted: the warm-up's and the capture's) and is
+    held to `run_eager(frames[0])`; one replay on `frames[1]` (other
+    image, depth and boxes, the same shapes) runs under `torch.profiler`,
+    which counts its rasterizing kernels on the device, and is held to
+    `run_eager(frames[1])`; then both are timed in turns on `frames[1]`."""
+    from happypose_tpu_torch import bench
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    a, b = frames
+    eager = run_eager(a)  # warm: cuDNN's algorithms, the allocator
+    n_keys = len(est._pipeline_jit_cache)
+    rf.launches = 0
+    first, t_capture = _timed(lambda: run(a))
+    launches[f"graphs: {name} (warm-up and capture)"] = n_wrapper = rf.launches
+    assert len(est._pipeline_jit_cache) == n_keys + 1
+    assert n_wrapper == 2 * expected, f"{name}: {n_wrapper} wrapper launches, expected 2 x {expected}"
+    err = _results_diff(first, eager)
+    replayed = []
+    prof = bench.busy_share(lambda: replayed.append(run(b)))
+    assert len(est._pipeline_jit_cache) == n_keys + 1, "the second frame made a new key"
+    err = max(err, _results_diff(replayed[0], run_eager(b)))
+    traced[f"{name} (one replay)"] = n = prof["raster_kernels"]
+    assert n == expected, f"{name}: {n} kernels in a replay's trace, expected {expected}"
+    times = _in_turns(lambda: run_eager(b), lambda: run(b))
+    pool = est._pipeline_jit_cache.pool_bytes()
+    figures[name] = {"s_per_image": times, "capture_s": t_capture, "max_abs_diff": err,
+                     "launches_per_replay_traced": n, "busy_share_replay": prof["busy_share"],
+                     "pool_bytes": pool}
+    log(f"graphs {name} ({card_line()}): s/image graph {_fmt(times['graph'])} vs eager "
+        f"{_fmt(times['eager'])}; first call (warm-up, capture, replay) {t_capture:.3f} s, "
+        f"{n_wrapper} wrapper launches; graph vs eager max abs diff {err:g} (limit "
+        f"{GRAPH_ATOL}; the capture's frame and a replay on another frame); {n} raster kernels "
+        f"in a replay's device trace (expected {expected}), busy share {prof['busy_share']:.3f}; "
+        f"graph pool {pool / 2**20:.1f} MiB")
+    assert err <= GRAPH_ATOL, f"{name}: graph vs eager {err}"
+    return first
+
+
+def _moved(det, dx=5.0, dy=3.0):
+    """The same detections with their boxes moved by (dx, dy) pixels."""
+    shift = torch.tensor([dx, dy, dx, dy], device=det.boxes.device)
+    return dataclasses.replace(det, boxes=det.boxes + shift)
+
+
+def _graphs_pipeline(dev, kernel, figures, launches, traced):
+    """The bench's `--pipeline` frame (detector -> megapose-RGB, 576-grid,
+    top-5, 5 iterations, D = 4, float32) through the detector's and the
+    frame's graphs against the eager path, captured on the bench's frame
+    and replayed on another (seed 1, boxes moved); then D = 2, 4, 2 on the
+    same estimator (one shared pool), and `forward_coarse_jit` against
+    `forward_coarse` at D = 2 on both frames."""
+    from happypose_tpu_torch import bench
+    from happypose_tpu_torch.inference.detector import Detector
+    from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
+    from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+    from happypose_tpu_torch.utils.load_model import load_named_model
+
+    with bench._tf32(), _KernelInputs() as inputs:
+        db = bench._mesh_db("debug")
+        est = load_named_model("megapose-RGB", db, device=dev)
+        K = torch.tensor([bench.K_BENCH], device=dev)
+        obs_a, obs_b = (ObservationBatch(rgb=torch.from_numpy(np.random.RandomState(seed).rand(
+            1, 3, *bench.RES).astype(np.float32)).to(dev), K=K) for seed in (0, 1))
+        detector = Detector(FCOSDetector(DetectorConfig(n_classes=len(db.labels)))
+                            .init_weights(torch.Generator().manual_seed(0)).to(dev),
+                            image_size=bench.RES)
+        eager_detector = _eager_detector(detector)
+        dets = {D: DetectionBatch.from_numpy(np.asarray(bench.PIPELINE_BOXES[:D], np.float32),
+                                            np.asarray(bench.PIPELINE_OBJ_IDS[:D]), device=dev)
+                for D in (2, 4)}
+        frames = [(obs_a, dets[4]), (obs_b, _moved(dets[4]))]
+
+        # the detector's forward alone: graph against eager, captured on the
+        # first image, replayed on the second
+        det_err = 0.0
+        for obs in (obs_a, obs_b):
+            with torch.inference_mode():
+                raw = eager_detector.model(obs.rgb)
+            out = detector._forward(obs.rgb)
+            det_err = max([det_err] + [float((x - y).abs().max()) for x, y in zip(out, raw)])
+        assert len(detector._forward_graphs) == 1, len(detector._forward_graphs)
+        assert det_err <= GRAPH_ATOL, f"detector forward: graph vs eager {det_err}"
+
+        def run(frame):
+            detector.get_detections(frame[0], detection_th=0.3)
+            return est.run_inference_pipeline_jit(*frame, 5, 5)
+
+        def run_eager(frame):
+            eager_detector.get_detections(frame[0], detection_th=0.3)
+            return est.run_inference_pipeline(*frame, 5, 5)
+
+        expected = bench.frame_launches(
+            dataclasses.replace(est.cfg, n_refiner_iterations=5, n_pose_hypotheses=5), 4,
+            est.SO3_grid.shape[0])
+        _graph_check("bench --pipeline (detector -> megapose-RGB, D = 4)", est, expected,
+                     figures, launches, traced, run, run_eager, frames)
+        figures["detector_forward_max_abs_diff"] = det_err
+        figures["detector_pool_bytes"] = detector._forward_graphs.pool_bytes()
+
+        # D = 2, 4, 2 on one estimator: one pool, each result the eager one's
+        order, kept, pools, eager = [], None, [], {}
+        for D in (2, 4, 2):
+            res = est.run_inference_pipeline_jit(obs_b, dets[D], 5, 5)
+            if D not in eager:
+                eager[D] = est.run_inference_pipeline(obs_b, dets[D], 5, 5)
+            err = _results_diff(res, eager[D])
+            assert err <= GRAPH_ATOL, f"D = {D}: graph vs eager {err}"
+            if kept is None:
+                first, kept = res, {k: v.poses.clone() for k, v in res.items()}
+            order.append(D)
+            pools.append(est._pipeline_jit_cache.pool_bytes())
+        assert all(torch.equal(first[k].poses, v) for k, v in kept.items()), \
+            "a later replay changed the first call's results"
+        assert len(est._pipeline_jit_cache) == 2, len(est._pipeline_jit_cache)
+        capture = est._pipeline_jit_cache.capture_seconds
+        figures["d_order"] = {"order": order, "pool_bytes": pools, "capture_s": capture}
+        log(f"graphs D = 2, 4, 2 on one estimator: each equal to eager, the first call's results "
+            f"untouched; {len(est._pipeline_jit_cache)} frame graphs, capture s a key "
+            f"{[round(c, 3) for c in capture]}, pool MiB after each call "
+            f"{[round(p / 2**20, 1) for p in pools]}; reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+        # the coarse stage alone: captured on the first frame, replayed on the second
+        coarse_err = 0.0
+        for obs, det in ((obs_a, dets[2]), (obs_b, _moved(dets[2]))):
+            coarse_err = max(coarse_err, _results_diff(
+                {"coarse": est.forward_coarse_jit(obs, det)},
+                {"coarse": est.forward_coarse(obs, det)}))
+        assert len(est._pipeline_jit_cache) == 3, len(est._pipeline_jit_cache)
+        figures["forward_coarse_jit"] = {"max_abs_diff": coarse_err,
+                                         "capture_s": est._pipeline_jit_cache.capture_seconds[-1]}
+        log(f"graphs forward_coarse_jit vs forward_coarse (megapose-RGB, 576-grid, D = 2, the "
+            f"capture's frame and another): max abs diff {coarse_err:g} (limit {GRAPH_ATOL})")
+        assert coarse_err <= GRAPH_ATOL, f"forward_coarse_jit vs forward_coarse {coarse_err}"
+    _check_new_shapes("graphs_pipeline", inputs, kernel)
+
+
+def _graphs_cosypose(dev, kernel, figures, launches, traced):
+    """Detector (its graph) -> cosypose-RGB (the frame's graph) at full
+    width on the 480x640 frame against the eager path, captured on one
+    seeded frame and replayed on another."""
+    from happypose_tpu_torch.evaluation.prediction_runner import boxes_to_frame
+    from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.models.detector import DetectorConfig
+    from happypose_tpu_torch.utils.load_model import load_detector
+
+    db = debug_mesh_db(MeshDataBase, io)
+    frames = [_synthetic_frame(db, dev, seed)[0] for seed in (0, 1)]
+    detector = load_detector(DetectorConfig(n_classes=len(db.labels)), seed=0, device=dev)
+    eager_detector = _eager_detector(detector)
+    est = _load("cosypose-RGB", db, dev)
+
+    def detect(d, obs):
+        x, K = _detector_input(obs, d.image_size)
+        found, _ = d.get_detections(ObservationBatch(rgb=x, K=K), detection_th=0.0,
+                                    one_instance_per_class=True)
+        return DetectionBatch.from_numpy(
+            boxes=boxes_to_frame(found.boxes.cpu().numpy(), obs.K[0].cpu().numpy(),
+                                 K[0].cpu().numpy()),
+            obj_ids=found.obj_ids.cpu().numpy(), scores=found.scores.cpu().numpy(), device=dev)
+
+    for obs in frames:
+        det, det_g = detect(eager_detector, obs), detect(detector, obs)
+        assert torch.equal(det.boxes, det_g.boxes) and torch.equal(det.obj_ids, det_g.obj_ids), \
+            "the graphed detector found other boxes"
+
+    with _KernelInputs() as inputs:
+        _graph_check(f"detector -> cosypose-RGB (D = {det.n_rows})", est,
+                     _frame_launches(est.cfg, det.n_rows), figures, launches, traced,
+                     lambda obs: est.run_inference_pipeline_jit(obs, detect(detector, obs)),
+                     lambda obs: est.run_inference_pipeline(obs, detect(eager_detector, obs)),
+                     frames)
+    _check_new_shapes("graphs_cosypose", inputs, kernel)
+
+
+def _graphs_rgbd(dev, kernel, figures, launches, traced):
+    """megapose-RGB + ICP and + "teaserpp" at full width on the RGB-D frame
+    (the depth refiner inside the frame's graph), captured on one seeded
+    frame and replayed on another."""
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+
+    db = debug_mesh_db(MeshDataBase, io)
+    frames = [_synthetic_rgbd_frame(db, dev, seed)[:2] for seed in (0, 1)]
+    est = _load("megapose-RGB", db, dev)
+    rgb_cfg = est.cfg
+    D = frames[0][1].n_rows
+    with _KernelInputs() as inputs:
+        for name in ("icp", "teaserpp"):
+            est.cfg = dataclasses.replace(rgb_cfg, run_depth_refiner=True, depth_refiner=name)
+            res = _graph_check(f"megapose-RGB + {name} (D = {D})", est,
+                               _megapose_launches(est, D) + 1, figures, launches, traced,
+                               lambda frame: est.run_inference_pipeline_jit(*frame),
+                               lambda frame: est.run_inference_pipeline(*frame), frames)
+            moved = (res["final"].poses - res["scored"].poses)[res["final"].valid]
+            assert moved.abs().max() > 0, f"{name} did not move a pose inside the graph"
+    _check_new_shapes("graphs_rgbd", inputs, kernel)
+
+
+def _graphs_refiner(dev, figures, launches, traced):
+    """The refiner bench's iteration (bfloat16, debug set) at B = 16 (phase
+    39 replays B = 64 through the same graph): `N_SCAN` chained calls of the stage graph `_refine_fn` (each replay on
+    the previous one's poses) against the model's eager call, the final
+    poses compared, both timed in turns and profiled (device busy share,
+    the rasterizing kernels counted on the device)."""
+    from happypose_tpu_torch import bench
+    from happypose_tpu_torch.inference.pose_estimator import _refine_fn, _stage_graphs
+    from happypose_tpu_torch.models.pose_predictor import PosePredictorConfig
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    with bench._tf32():
+        db = bench._mesh_db("debug")
+        assets = db.render_assets(device=dev)
+        meshes_db = db.batched(n_points=512, device=dev)
+        model = bench.seeded_predictor(PosePredictorConfig(
+            backbone="resnet34", render_size=bench.RES, compute_dtype="bfloat16"), dev)
+        for B in (16,):
+            images, K, obj_ids, TCO0 = bench.bench_inputs(B, dev)
+            meshes = meshes_db.select(obj_ids)
+
+            def eager(TCO=TCO0):
+                with torch.inference_mode():
+                    for _ in range(bench.N_SCAN):
+                        TCO = model(images, K, obj_ids, TCO, assets, meshes).TCO_output[-1]
+                return TCO
+
+            def graph(TCO=TCO0):
+                for _ in range(bench.N_SCAN):
+                    TCO = _refine_fn(model, images, K, obj_ids, TCO, assets, meshes, 1)[-1]
+                return TCO
+
+            ref = eager()
+            rf.launches = 0
+            graph()  # the first call captures
+            launches[f"graphs: refiner stage B={B} (warm-up and capture)"] = rf.launches
+            assert rf.launches == 2, rf.launches
+            out = graph()
+            err = float((out - ref).abs().max())
+            times = _in_turns(eager, graph)
+            prof = {"graph": bench.busy_share(graph), "eager": bench.busy_share(eager)}
+            traced[f"refiner stage B={B} ({bench.N_SCAN} replays)"] = n = \
+                prof["graph"]["raster_kernels"]
+            assert n == bench.N_SCAN == prof["eager"]["raster_kernels"], (n, prof)
+            per_iter = {k: [t / bench.N_SCAN for t in v] for k, v in times.items()}
+            figures[f"refiner_b{B}"] = {"s_per_iteration": per_iter, "profile": prof,
+                                        "max_abs_diff": err,
+                                        "pool_bytes": _stage_graphs[model].pool_bytes()}
+            log(f"graphs refiner B={B} ({card_line()}): s/iteration graph "
+                f"{_fmt(per_iter['graph'])} vs eager {_fmt(per_iter['eager'])} "
+                f"({B / statistics.median(per_iter['graph']):.1f} vs "
+                f"{B / statistics.median(per_iter['eager']):.1f} pose-iterations/s); busy share "
+                f"graph {prof['graph']['busy_share']:.3f} vs eager {prof['eager']['busy_share']:.3f}; "
+                f"poses after {bench.N_SCAN} iterations max abs diff {err:g} (limit {GRAPH_ATOL}); "
+                f"{n} raster kernels in the device trace of {bench.N_SCAN} replays")
+            assert err <= GRAPH_ATOL, f"refiner B={B}: graph vs eager {err}"
+
+
+def phase_graphs(dev, kernel: dict) -> dict:
+    """Phase 41: the compiled entry points as CUDA graphs against the eager
+    paths (see the docstring of the module)."""
+    import gc
+
+    figures, launches, traced = {}, {}, {}
+    for part in (lambda: _graphs_pipeline(dev, kernel, figures, launches, traced),
+                 lambda: _graphs_cosypose(dev, kernel, figures, launches, traced),
+                 lambda: _graphs_rgbd(dev, kernel, figures, launches, traced),
+                 lambda: _graphs_refiner(dev, figures, launches, traced)):
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "traced": traced, "figures": figures}
+
+
+PHASE_SECONDS: dict = {}  # host seconds of each `phase_*` call, by function name
+T_START = time.perf_counter()
+
+
+def _clocked(fn):
+    """`fn` that adds its seconds to `PHASE_SECONDS` and logs them."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            t = time.perf_counter()
+            PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) + t - t0
+            log(f"[{fn.__name__}: {t - t0:.1f} s, {t - T_START:.1f} s since the start]")
+    return run
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
+    for name in [n for n in globals() if n.startswith("phase_")]:
+        globals()[name] = _clocked(globals()[name])
     device = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3707,42 +4122,36 @@ def main() -> None:
             "recorder": recorder, "record_cli": {k: split[k] for k in (
                 "frames_per_s", "bop_read_fps", "wds_read_fps")},
             "refiner_from_disk": disk["figures"], "detector": detector}))
-        seconds = {}
-
-        def timed_phase(n, fn, *a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            seconds[n] = round(time.perf_counter() - t0, 1)
-            return out
-
-        mv = timed_phase(30, phase_multiview_synthesize, dev, root, kernel)
+        mv = phase_multiview_synthesize(dev, root, kernel)
         launches.update(mv["launches"])
-        launches.update(timed_phase(31, phase_multiview_pipeline, dev, root, mv["scene"], kernel))
-        launches.update(timed_phase(32, phase_multiview_record_dr, dev, root, mv["scene"], kernel))
-        custom = timed_phase(33, phase_custom_scenario, dev, root, mv["scene"])
+        launches.update(phase_multiview_pipeline(dev, root, mv["scene"], kernel))
+        launches.update(phase_multiview_record_dr(dev, root, mv["scene"], kernel))
+        custom = phase_custom_scenario(dev, root, mv["scene"])
         launches["run_custom_scenario (2 scenarios)"] = sum(f["launches"] for f in custom.values())
-        ba = timed_phase(34, phase_large_ba, dev, mv["scene"])
-        log(f"multiview phases 30-34: {sum(seconds.values()):.1f} s (by phase {seconds}); "
-            "figures: " + json.dumps({"scene": mv["figures"], "custom_scenario": custom,
-                                      "large_ba": ba}))
-        seconds = {}
-        bb_figures, bb_launches = timed_phase(35, phase_backbone_training, dev)
+        ba = phase_large_ba(dev, mv["scene"])
+        log("multiview phases 30-34 figures: " + json.dumps(
+            {"scene": mv["figures"], "custom_scenario": custom, "large_ba": ba}))
+        bb_figures, bb_launches = phase_backbone_training(dev)
         launches.update(bb_launches)
-        serving = timed_phase(36, phase_backbone_serving, dev, root, kernel)
+        serving = phase_backbone_serving(dev, root, kernel)
         launches.update(serving["launches"])
-        timed_phase(37, phase_host_tools, dev, root)
-        log(f"backbone and tool phases 35-37: {sum(seconds.values()):.1f} s (by phase {seconds}); "
-            "figures: " + json.dumps({"training": bb_figures, "serving": serving["figures"]}))
-        sharded = timed_phase(38, phase_sharded, dev, root, mv["scene"])
+        phase_host_tools(dev, root)
+        log("backbone phases 35-36 figures: " + json.dumps(
+            {"training": bb_figures, "serving": serving["figures"]}))
+        sharded = phase_sharded(dev, root, mv["scene"])
         launches.update(sharded["launches"])
-        log(f"sharded phase 38: {seconds[38]:.1f} s; figures: " + json.dumps(sharded["figures"]))
-        bench_run = timed_phase(39, phase_bench, dev, kernel)
+        log("sharded phase 38 figures: " + json.dumps(sharded["figures"]))
+        bench_run = phase_bench(dev, kernel)
         launches.update(bench_run["launches"])
-        log(f"bench phase 39: {seconds[39]:.1f} s; figures: " + json.dumps(bench_run["figures"]))
-        jax_dirs = timed_phase(40, phase_jax_run_dirs, dev, root, data, kernel)
+        log("bench phase 39 figures: " + json.dumps(bench_run["figures"]))
+        jax_dirs = phase_jax_run_dirs(dev, root, data, kernel)
         launches.update(jax_dirs["launches"])
-        log(f"JAX run-directory phase 40: {seconds[40]:.1f} s; figures: "
-            + json.dumps(jax_dirs["figures"]))
+        log("JAX run-directory phase 40 figures: " + json.dumps(jax_dirs["figures"]))
+        graphs = phase_graphs(dev, kernel)
+        launches.update(graphs["launches"])
+        log("graphs phase 41 figures: " + json.dumps(graphs["figures"]))
+    log("phase seconds, largest first: " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])}))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
     print(json.dumps({"kernels": [{
         "name": "raster_fused",
@@ -3752,6 +4161,9 @@ def main() -> None:
         "also_replaces": "happypose_tpu/ops/rasterizer_pallas.py:257",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
+        # a CUDA graph's replay runs no Python: its launches are the
+        # rasterizing kernels of one replay's device trace (phase 41)
+        "replay_launches_traced": graphs["traced"],
         "max_abs_err": kernel["max_abs_err"],
         # at the refiner's shape (debug mesh, B = 16, 240x320); every shape under "shapes"
         "ms": kernel["ms"],

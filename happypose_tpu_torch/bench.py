@@ -17,7 +17,11 @@ One pose-iteration = crop -> render (240x320, the hand-written CUDA
 rasterizer) -> CNN (ResNet34) -> SE(3) update for one object hypothesis.
 The refiner runs one warm call, then `N_SCAN` single-iteration calls, each
 fed the previous call's pose (the JAX bench's `lax.scan` body), timed on
-the host clock around work that ends in `torch.cuda.synchronize()`.
+the host clock around work that ends in `torch.cuda.synchronize()`. As the
+JAX bench runs compiled programs, the refiner's iteration is the stage
+graph `_refine_fn` (captured by the warm call, replayed after) and the
+pipeline's frame is `run_inference_pipeline_jit` (captured by the warm
+image); `--breakdown` times the eager stages.
 
 vs_baseline is measured against the JAX bench's anchors: 50
 pose-iterations/s/GPU for the reference's V100-era refiner at
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from happypose_tpu_torch.inference.detector import Detector
+from happypose_tpu_torch.inference.pose_estimator import _refine_fn
 from happypose_tpu_torch.inference.types import DetectionBatch, InferenceConfig, ObservationBatch
 from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
 from happypose_tpu_torch.meshes import io
@@ -168,7 +173,9 @@ def _ms(fn: Callable[[], object], device, n_runs: int) -> float:
 
 def busy_share(fn: Callable[[], object]) -> Dict[str, float]:
     """One call of `fn` under `torch.profiler` (device activity only): the
-    device's kernels and copies, their time and the call's wall time."""
+    device's kernels and copies, their time, the call's wall time and the
+    rasterizing kernels among them (`raster_kernels`: one a launch, counted
+    on the device, so a CUDA graph's replays count too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,8 +187,9 @@ def busy_share(fn: Callable[[], object]) -> Dict[str, float]:
         wall = time.perf_counter() - t0
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in device) / 1e6
-    return {"device_kernels": sum(e.count for e in device), "busy_s": busy, "wall_s": wall,
-            "busy_share": busy / wall}
+    return {"device_kernels": sum(e.count for e in device),
+            "raster_kernels": sum(e.count for e in device if rf.KERNEL_NAME in e.key),
+            "busy_s": busy, "wall_s": wall, "busy_share": busy / wall}
 
 
 # ---------------------------------------------------------------- entry()
@@ -240,10 +248,12 @@ def refiner_line(mesh_set: str, batch: int, pose_iters_per_sec: float) -> dict:
 
 @_tf32()
 def refiner_bench(mesh_set: str = "debug", batch: int = B, device="cuda") -> Tuple[dict, dict]:
-    """Refiner pose-iterations/s at `batch` on `mesh_set`: one warm call,
-    then `N_SCAN` chained single-iteration calls. Returns (the JSON line,
-    notes: compute dtype, kernel launches of the run, the final poses and,
-    on the card, the busy share of a second, profiled window)."""
+    """Refiner pose-iterations/s at `batch` on `mesh_set`: one warm call
+    (it captures the stage graph), then `N_SCAN` chained single-iteration
+    replays. Returns (the JSON line, notes: compute dtype, the wrapper's
+    kernel launches of the run (the capture's warm-up and recording), the
+    final poses and, on the card, the busy share and the device's launches
+    of a second, profiled window)."""
     dev = torch.device(device)
     db = _mesh_db(mesh_set)
     assets = db.render_assets(device=dev)
@@ -254,15 +264,16 @@ def refiner_bench(mesh_set: str = "debug", batch: int = B, device="cuda") -> Tup
     images, K, obj_ids, TCO0 = bench_inputs(batch, dev)
     meshes = meshes_db.select(obj_ids)
 
-    @torch.inference_mode()
+    def step(TCO):
+        return _refine_fn(model, images, K, obj_ids, TCO, assets, meshes, 1)[-1]
+
     def many(TCO):
         for _ in range(N_SCAN):
-            TCO = model(images, K, obj_ids, TCO, assets, meshes, n_iterations=1).TCO_output[-1]
+            TCO = step(TCO)
         return TCO
 
     launches0 = rf.launches
-    with torch.inference_mode():  # warm: cuDNN's algorithm search, the allocator
-        model(images, K, obj_ids, TCO0, assets, meshes, n_iterations=1)
+    step(TCO0)  # warm: the capture (cuDNN's algorithms, the allocator)
     _sync(dev)
     t0 = time.perf_counter()
     TCO = many(TCO0)
@@ -306,10 +317,12 @@ def pipeline_line(seconds_per_image: float) -> dict:
 def pipeline_bench(n_images: int = 8, so3_grid: int = 0, device="cuda") -> Tuple[dict, dict]:
     """Detector -> megapose-RGB (576-grid coarse -> top-5 -> 5-iteration
     refine -> re-score -> top-1) s/image at the reference's load of 4
-    detections, float32 (TF32 off): one warm image, then the mean over `n_images`.
+    detections, float32 (TF32 off), both through their graphs: one warm
+    image (the captures), then the mean over `n_images`.
     `so3_grid` > 0 replaces the grid (and caps the coarse chunk at it), for
-    runs at a small grid. Returns (the JSON line, notes: launches of the
-    run and expected a frame, the last image's results)."""
+    runs at a small grid. Returns (the JSON line, notes: the wrapper's
+    launches of the run (the frame graph's warm-up and capture), the
+    launches of a frame, the last image's results)."""
     dev = torch.device(device)
     db = _mesh_db("debug")
     estimator = load_named_model("megapose-RGB", db, device=dev)
@@ -330,8 +343,8 @@ def pipeline_bench(n_images: int = 8, so3_grid: int = 0, device="cuda") -> Tuple
 
     def one_image():
         detector.get_detections(obs, detection_th=0.3)
-        out = estimator.run_inference_pipeline(obs, det, n_refiner_iterations=5,
-                                               n_pose_hypotheses=5)
+        out = estimator.run_inference_pipeline_jit(obs, det, n_refiner_iterations=5,
+                                                   n_pose_hypotheses=5)
         _sync(dev)
         return out
 
@@ -418,13 +431,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     elif "--pipeline" in argv:
         line, notes = pipeline_bench(so3_grid=_arg(argv, "--so3", 0))
         print(f"pipeline: compute_dtype {notes['compute_dtype']}, raster_fused launches {notes['launches']} "
-              f"({notes['launches_per_frame']} a frame x {notes['frames']} frames expected)",
+              f"(expected 2 x {notes['launches_per_frame']}: the frame graph's warm-up and "
+              f"capture; its {notes['frames']} replays launch on the device)",
               flush=True)
     else:
         line, notes = refiner_bench(_arg(argv, "--mesh", "debug"), _arg(argv, "--batch", B))
         print(f"refiner: compute_dtype {notes['compute_dtype']}, raster_fused launches "
-              f"{notes['launches']} (1 warm + {N_SCAN}; {notes['launches_with_profile']} with "
-              f"the profiled window), {notes['seconds']:.4f} s for {N_SCAN} iterations; "
+              f"{notes['launches']} (the stage graph's warm-up and capture; its replays launch "
+              f"on the device: raster_kernels of the profiled window; "
+              f"{notes['launches_with_profile']} with the profiled window), "
+              f"{notes['seconds']:.4f} s for {N_SCAN} iterations; "
               f"profiled window: {json.dumps(notes['profile'])}", flush=True)
     print(json.dumps(line), flush=True)
 

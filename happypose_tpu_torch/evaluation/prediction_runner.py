@@ -158,12 +158,22 @@ class PredictionRunner:
             obs_batch = ObservationBatch.from_numpy(
                 obs.rgb, obs.K, depth=obs.depth, device=self.device
             )
+            # one CUDA graph a frame shape, as JAX's runner jits the frame;
+            # a sharded coarse stage runs eagerly (JAX's runner does the same)
+            graphed = self.estimator.device_mesh is None
+            pipeline = (self.estimator.run_inference_pipeline_jit if graphed
+                        else self.estimator.run_inference_pipeline)
+            n_keys = len(self.estimator._pipeline_jit_cache) if graphed else 0
             self.synchronize()
             t0 = time.time()
-            results = self.estimator.run_inference_pipeline(obs_batch, det)
+            results = pipeline(obs_batch, det)
             final = results["final"]
             self.synchronize()
             elapsed = time.time() - t0
+            if graphed and len(self.estimator._pipeline_jit_cache) > n_keys:
+                logger.info(f"frame {len(out['final']) + 1}: a new frame graph ({det.n_rows} "
+                            f"detections at {tuple(obs_batch.rgb.shape)}; on the card its "
+                            f"capture is included) in {elapsed:.1f}s")
             valid = final.valid.cpu().numpy()
             out["final"].append(
                 {
@@ -177,9 +187,9 @@ class PredictionRunner:
             )
             n_done = len(out["final"])
             if n_done % 8 == 0 or n_done == 1:
-                # the first frame's `elapsed` includes the kernels' build
-                # and cuDNN's choice of algorithms; log it so a long quiet
-                # start can be told from a hang
+                # the first frame's `elapsed` includes the kernels' build,
+                # cuDNN's choice of algorithms and the frame's capture; log
+                # it so a long quiet start can be told from a hang
                 logger.info(
                     f"frame {n_done}: scene {obs.scene_id} view "
                     f"{obs.view_id} in {elapsed:.1f}s"

@@ -1,6 +1,9 @@
 """Detector wrapper: model outputs -> DetectionBatch for the pose pipeline
 (PyTorch port of `happypose_tpu/inference/detector.py`): score threshold,
-label mapping, one_instance_per_class filtering, instance-id assignment."""
+label mapping, one_instance_per_class filtering, instance-id assignment.
+The model's forward runs as one CUDA graph per image shape (`_forward`, the
+counterpart of the JAX wrapper's jitted forward); the postprocess, whose
+NMS reads to the host, runs after it."""
 
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import numpy as np
 import torch
 
 from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
-from happypose_tpu_torch.models.detector import FCOSDetector, detector_postprocess
+from happypose_tpu_torch.models.detector import DetectorOutputs, FCOSDetector, detector_postprocess
+from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
 
 
 class Detector:
@@ -20,6 +24,13 @@ class Detector:
     def __init__(self, model: FCOSDetector, image_size: Tuple[int, int] = (240, 320)):
         self.model = model.eval()
         self.image_size = image_size
+        self._forward_graphs = GraphCache()
+
+    def _forward(self, rgb: torch.Tensor) -> DetectorOutputs:
+        """`self.model(rgb)` through its graph of `rgb`'s shape (on a CPU
+        tensor: the same path with a plain call)."""
+        key = ("forward", self.model.training, storage_of(self.model))
+        return self._forward_graphs(key, self.model, (rgb,), captured=(self.model,))
 
     @torch.inference_mode()
     def get_detections(
@@ -34,7 +45,7 @@ class Detector:
         {"masks": [N, Hm, Wm] bool}). Labels are the detector's class
         indices, used as object ids."""
         post = detector_postprocess(
-            self.model(observation.rgb),
+            self._forward(observation.rgb),
             score_threshold=detection_th,
             iou_threshold=iou_threshold,
             max_detections=max_detections,

@@ -7,11 +7,16 @@ cloud's normals from depth-image gradients, and run point-to-plane ICP:
 dense nearest-neighbour correspondences (masked [N, M] distances) and one
 6x6 solve of the normal equations per iteration, for a fixed iteration
 count. Every function takes leading batch axes (`...`), so all instances
-run as one batch; `torch.linalg.solve` is batched over them.
+run as one batch; `torch.linalg.solve_ex` is batched over them and, as
+`jnp.linalg.solve`, never raises (it checks no error on the host, so a
+CUDA graph can capture it).
 
 Where the JAX version takes `jax.random` keys, this one takes a
 `torch.Generator`; where it uses `lax.top_k` (lowest index among equal
-scores), this one uses a stable descending sort.
+scores), this one uses a stable descending sort. Without a generator a
+refiner draws from `default_generator` (seed 0) afresh on every call; it
+keeps those draws by shape (`SeededDraws`), so such a call draws nothing
+on the device and a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -59,11 +64,30 @@ def default_generator(device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
 
-def _subsample_idx(valid: torch.Tensor, n: int, generator: torch.Generator) -> torch.Tensor:
+class SeededDraws:
+    """U[0, 1) draws of a generator on the device of `like`, one of each
+    shape in turn. Without a generator, those of a fresh
+    `default_generator`, kept by (shapes, device): the same numbers as
+    drawing them anew, and no draw on the device after the first call of
+    those shapes."""
+
+    def __init__(self):
+        self._kept = {}
+
+    def __call__(self, generator: Optional[torch.Generator], shapes, like: torch.Tensor):
+        if generator is not None:
+            return [torch.rand(s, generator=generator, device=like.device) for s in shapes]
+        key = (tuple(tuple(s) for s in shapes), like.device)
+        if key not in self._kept:
+            self._kept[key] = self(default_generator(like.device), shapes, like)
+        return self._kept[key]
+
+
+def _subsample_idx(valid: torch.Tensor, n: int, uniform: torch.Tensor) -> torch.Tensor:
     """Indices [..., n] of n points, valid ones first in random order
-    (a valid point scores 1 + U[0, 0.5), an invalid one U[0, 0.5))."""
-    noise = torch.rand(valid.shape, generator=generator, device=valid.device) * 0.5
-    score = valid.to(torch.float32) + noise
+    (a valid point scores 1 + U[0, 0.5), an invalid one U[0, 0.5));
+    `uniform` holds U[0, 1) draws of `valid`'s shape."""
+    score = valid.to(torch.float32) + uniform * 0.5
     return torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :n]
 
 
@@ -74,9 +98,9 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
-def _subsample(pts, valid, n: int, generator: torch.Generator):
+def _subsample(pts, valid, n: int, uniform: torch.Tensor):
     """Pick n points, biased to valid ones (invalid ones stay masked)."""
-    idx = _subsample_idx(valid, n, generator)
+    idx = _subsample_idx(valid, n, uniform)
     return _take(pts, idx), _take(valid, idx)
 
 
@@ -121,7 +145,7 @@ def icp_point_to_plane(
         Aw = A * w[..., None]
         H6 = Aw.transpose(-1, -2) @ A + ridge
         g = (Aw.transpose(-1, -2) @ -plane[..., None])[..., 0]
-        x = torch.linalg.solve(H6, g)
+        x = torch.linalg.solve_ex(H6, g, check_errors=False).result
         T = make_T(axis_angle_to_rotmat(x[..., :3]), x[..., 3:6]) @ T
         res_new = residual_and_corr(T)[-1]
         better = res_new < best_res
@@ -147,6 +171,7 @@ class ICPRefiner:
         self.n_points = n_points
         self.n_iterations = n_iterations
         self.max_corr_dist = max_corr_dist
+        self._draws = SeededDraws()
 
     @torch.inference_mode()
     def refine(
@@ -159,14 +184,13 @@ class ICPRefiner:
     ) -> torch.Tensor:
         """Returns refined TCO [B, 4, 4]; an instance whose render has 32
         valid points or fewer keeps its pose."""
-        if generator is None:
-            generator = default_generator(TCO.device)
         render = self.renderer_fn(self.assets, obj_ids, TCO, K, resolution=self.resolution)
         src_all, src_v = backproject_depth(render.depth, K)
         tgt_all, tgt_v = backproject_depth(depth_obs, K)
         nrm = depth_normals(depth_obs, K).flatten(-3, -2)
-        src, sv = _subsample(src_all, src_v, self.n_points, generator)
-        ti = _subsample_idx(tgt_v, self.n_points, generator)
+        u_src, u_tgt = self._draws(generator, (src_v.shape, tgt_v.shape), TCO)
+        src, sv = _subsample(src_all, src_v, self.n_points, u_src)
+        ti = _subsample_idx(tgt_v, self.n_points, u_tgt)
         dT = icp_point_to_plane(
             src, sv, _take(tgt_all, ti), _take(nrm, ti), _take(tgt_v, ti),
             max_corr_dist=self.max_corr_dist, n_iterations=self.n_iterations,

@@ -19,11 +19,18 @@ render batch per iteration. With a `device_mesh`, the coarse hypotheses
 are split over the ranks of its `mesh_axis`: each rank scores its block,
 in chunks of `bsz_images`, and the logits are gathered on every rank;
 every later stage runs on every rank, as JAX's does.
+
+The JAX package's compiled entry points are CUDA graphs here
+(`utils/cuda_graphs.py`): `forward_coarse_jit` and
+`run_inference_pipeline_jit` capture a whole stage or frame once per shape
+key and replay it per frame; the stage programs `_coarse_logits_fn` and
+`_refine_fn` capture one chunk of one model. The eager methods stay eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,12 +53,51 @@ from happypose_tpu_torch.models.pose_predictor import PosePredictor
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
 from happypose_tpu_torch.parallel.collectives import sharded_batch_apply
+from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
 
 
 def _model_images(model: PosePredictor, obs: ObservationBatch) -> torch.Tensor:
     """The frames `model` reads: an RGB model drops a depth channel anyway,
     so it is not gathered once per hypothesis first."""
     return obs.images if model.cfg.input_depth else obs.rgb
+
+
+# The stage programs' graphs, one cache a model: JAX's module-level jits key
+# on the model; here a model's graphs go when the model does.
+_stage_graphs: "weakref.WeakKeyDictionary[PosePredictor, GraphCache]" = weakref.WeakKeyDictionary()
+
+
+def _stage_call(model: PosePredictor, key, fn, args, assets):
+    graphs = _stage_graphs.setdefault(model, GraphCache())
+    key = (key, model.cfg, model.training, storage_of(model))
+    return graphs(key, fn, args, captured=(assets,))
+
+
+def _coarse_logits(model, images, K, obj_ids, TCO, assets, meshes) -> torch.Tensor:
+    """The coarse classifier's logits [chunk] of one chunk of hypotheses
+    (`meshes`: the chunk's rows, `select(obj_ids)`)."""
+    out = model(images, K, obj_ids, TCO, assets, meshes, n_iterations=1)
+    return out.renderings_logits[0, :, 0]
+
+
+def _coarse_logits_fn(model, images, K, obj_ids, TCO, assets, meshes) -> torch.Tensor:
+    """`_coarse_logits` through the model's graph of this chunk's shapes; a
+    ragged last chunk has its own."""
+    def logits(images, K, obj_ids, TCO, meshes):
+        return _coarse_logits(model, images, K, obj_ids, TCO, assets, meshes)
+
+    return _stage_call(model, "coarse_logits", logits, (images, K, obj_ids, TCO, meshes), assets)
+
+
+def _refine_fn(model, images, K, obj_ids, TCO, assets, meshes, n_iterations) -> torch.Tensor:
+    """`n_iterations` pose updates of one chunk: TCO_output [n_iterations,
+    chunk, 4, 4], through the model's graph of this chunk's shapes and
+    `n_iterations`."""
+    def refine(images, K, obj_ids, TCO, meshes):
+        return model(images, K, obj_ids, TCO, assets, meshes, n_iterations=n_iterations).TCO_output
+
+    return _stage_call(model, ("refine", n_iterations), refine,
+                       (images, K, obj_ids, TCO, meshes), assets)
 
 
 class PoseEstimator:
@@ -89,6 +135,7 @@ class PoseEstimator:
             assets.vertices.device
         )
         self._depth_refiners: Dict[tuple, object] = {}
+        self._pipeline_jit_cache = GraphCache()
 
     # ------------------------------------------------------------------
     # MegaPose coarse: score detections x SO(3)-grid hypotheses
@@ -131,6 +178,24 @@ class PoseEstimator:
             valid=valid,
         )
 
+    def forward_coarse_jit(
+        self, obs: ObservationBatch, detections: DetectionBatch
+    ) -> PoseEstimateBatch:
+        """`forward_coarse` as one CUDA graph per (image shape, detection
+        count), replayed per call (on CPU tensors: the same path with a plain
+        call)."""
+        key = ("coarse", tuple(obs.rgb.shape), detections.n_rows)
+        return self._graph_call(key, self.forward_coarse, (obs, detections))
+
+    def _graph_call(self, key, fn, args):
+        """`fn(*args)` through `_pipeline_jit_cache`: JAX's key plus the
+        configuration, the models' mode and storage, and the captured
+        objects' identity."""
+        models = [m for m in (self.refiner_model, self.coarse_model) if m is not None]
+        key = (key, self.cfg, tuple((m.cfg, m.training) for m in models), storage_of(*models))
+        captured = (*models, self.assets, self.meshes, self.SO3_grid)
+        return self._pipeline_jit_cache(key, fn, args, captured=captured)
+
     def _score_hypotheses(self, obs, K, obj_ids, im_ids, TCO) -> torch.Tensor:
         """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a
         time (split over the mesh axis's ranks with a `device_mesh`)."""
@@ -141,11 +206,9 @@ class PoseEstimator:
             logits = []
             for s in range(0, Tb.shape[0], self.cfg.bsz_images):
                 sl = slice(s, s + self.cfg.bsz_images)
-                out = self.coarse_model(
-                    images[ib[sl]], Kb[sl], ob[sl], Tb[sl], self.assets,
-                    self.meshes.select(ob[sl]), n_iterations=1,
-                )
-                logits.append(out.renderings_logits[0, :, 0])
+                logits.append(_coarse_logits(
+                    self.coarse_model, images[ib[sl]], Kb[sl], ob[sl], Tb[sl], self.assets,
+                    self.meshes.select(ob[sl])))
             return torch.cat(logits)
 
         batch = (K, obj_ids, im_ids, TCO)
@@ -300,6 +363,40 @@ class PoseEstimator:
             final = results["depth_refined"] = self.run_depth_refiner(obs, final)
         results["final"] = final
         return results
+
+    def run_inference_pipeline_jit(
+        self,
+        obs: ObservationBatch,
+        detections: DetectionBatch,
+        n_refiner_iterations: Optional[int] = None,
+        n_pose_hypotheses: Optional[int] = None,
+    ) -> Dict[str, PoseEstimateBatch]:
+        """`run_inference_pipeline` as one CUDA graph per (image shape,
+        depth shape, detection count, iterations, hypotheses): the whole
+        frame, the depth refiner included, is captured once and each later
+        frame of the key is one replay. Returns the eager pipeline's dict,
+        cloned out of the graph. On CPU tensors the same path with a plain
+        call. With a `device_mesh` it raises: the sharded coarse stage's
+        collectives are not captured (ROADMAP, the jit sites still to
+        port); call `run_inference_pipeline`, as `PredictionRunner` does."""
+        if self.device_mesh is not None:
+            raise ValueError(
+                "run_inference_pipeline_jit runs without a device_mesh: the sharded "
+                "coarse stage is not captured yet (ROADMAP.md, the jit sites still to "
+                "port); call run_inference_pipeline")
+        key = (
+            tuple(obs.rgb.shape),
+            None if obs.depth is None else tuple(obs.depth.shape),
+            detections.n_rows,
+            n_refiner_iterations,
+            n_pose_hypotheses,
+        )
+
+        def frame(obs, detections):
+            return self.run_inference_pipeline(
+                obs, detections, n_refiner_iterations, n_pose_hypotheses)
+
+        return self._graph_call(key, frame, (obs, detections))
 
     def _run_megapose(self, obs, detections, n_refiner_iterations, n_pose_hypotheses,
                       results) -> PoseEstimateBatch:

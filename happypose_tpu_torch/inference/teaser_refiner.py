@@ -6,10 +6,12 @@ between the rendered and the observed depth images, downsample them
 (farthest-point or random), solve a robust registration by graduated
 non-convexity over a truncated-least-squares cost (Yang et al., "Graduated
 Non-Convexity for Robust Spatial Perception"): each GNC step is a weighted
-Procrustes solve, a 3x3 SVD (`torch.linalg.svd`, batched over instances).
-The update is accepted only when enough inliers survive. Every function
-takes leading batch axes (`...`); `torch.Generator`s take the place of
-`jax.random` keys.
+Procrustes solve, batched over instances. Where JAX takes a 3x3 SVD, the
+port solves the 3x3 problem in plain tensor operations (`_kabsch`: Horn's
+quaternion method in float64, no host read, so that a CUDA graph can
+capture the refiner). The update is accepted only when enough inliers
+survive. Every function takes leading batch axes (`...`);
+`torch.Generator`s take the place of `jax.random` keys.
 """
 
 from __future__ import annotations
@@ -19,12 +21,44 @@ from typing import Optional, Tuple
 import torch
 
 from happypose_tpu_torch.inference.icp_refiner import (
+    SeededDraws,
     _subsample_idx,
     _take,
     backproject_depth,
-    default_generator,
 )
+from happypose_tpu_torch.lib3d.rotations import quat_to_rotmat
 from happypose_tpu_torch.lib3d.transforms import make_T
+
+SQUARINGS = 32  # `_kabsch`'s power iteration: converged for relative gaps down to ~1e-8
+
+
+def _kabsch(H: torch.Tensor) -> torch.Tensor:
+    """The rotation R [..., 3, 3] of Kabsch's solution for the covariance
+    H [..., 3, 3] (`U, S, Vt = svd(H)`, R = V diag(1, 1, det(V U^T)) U^T),
+    without an SVD: Horn's quaternion method, in float64. R is the rotation
+    of the top eigenvector of Horn's symmetric 4x4 matrix N; it is found
+    by `SQUARINGS` squarings of N / |N| + I (positive semi-definite, each
+    squaring scaled to trace 1), whose columns then all point along it.
+    Plain operations with no convergence test read back, so a CUDA graph
+    captures it. H = 0 (every weight 0) gives the identity, as
+    `torch.linalg.svd`'s U = V = I does."""
+    Hd = H.double()
+    # Horn's matrix, S_ab = H[a, b]
+    (xx, xy, xz), (yx, yy, yz), (zx, zy, zz) = (row.unbind(-1) for row in Hd.unbind(-2))
+    N = torch.stack([
+        xx + yy + zz, yz - zy, zx - xz, xy - yx,
+        yz - zy, xx - yy - zz, xy + yx, zx + xz,
+        zx - xz, xy + yx, yy - xx - zz, yz + zy,
+        xy - yx, zx + xz, yz + zy, zz - xx - yy,
+    ], dim=-1).reshape(*H.shape[:-2], 4, 4)
+    scale = torch.linalg.vector_norm(N, dim=(-2, -1))[..., None, None]
+    A = N / torch.clamp(scale, min=1e-300) + torch.eye(4, dtype=Hd.dtype, device=H.device)
+    for _ in range(SQUARINGS):
+        A = A @ A
+        A = A / A.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    col = A.diagonal(dim1=-2, dim2=-1).argmax(-1)
+    q = torch.gather(A, -1, col[..., None, None].expand(*A.shape[:-1], 1))[..., 0]
+    return quat_to_rotmat(torch.cat([q[..., 1:], q[..., :1]], dim=-1)).to(H.dtype)  # (w, x, y, z) -> xyzw
 
 
 def weighted_procrustes(
@@ -32,7 +66,7 @@ def weighted_procrustes(
     dst: torch.Tensor,  # [..., N, 3]
     w: torch.Tensor,  # [..., N] non-negative
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Closed-form weighted rigid alignment src -> dst (Kabsch / SVD):
+    """Closed-form weighted rigid alignment src -> dst (Kabsch, `_kabsch`):
     (R [..., 3, 3], t [..., 3])."""
     wc = w[..., None]
     wsum = torch.clamp(w.sum(dim=-1), min=1e-9)[..., None]
@@ -40,12 +74,7 @@ def weighted_procrustes(
     q_bar = (wc * dst).sum(dim=-2) / wsum
     P = src - p_bar[..., None, :]
     Q = dst - q_bar[..., None, :]
-    H = (wc * P).transpose(-1, -2) @ Q
-    U, _, Vt = torch.linalg.svd(H)
-    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
-    d = torch.sign(torch.linalg.det(V @ Ut))
-    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
-    R = V @ D @ Ut
+    R = _kabsch((wc * P).transpose(-1, -2) @ Q)
     t = q_bar - (R @ p_bar[..., None])[..., 0]
     return R, t
 
@@ -95,7 +124,12 @@ def farthest_point_sample(
     """Indices [..., n] of n farthest-point samples among the valid points,
     O(n N), starting from a random valid point."""
     noise = torch.rand(valid.shape, generator=generator, device=valid.device)
-    return _farthest_point_scan(pts, valid, n, (noise + valid.to(pts.dtype)).argmax(dim=-1))
+    return _farthest_point_from(pts, valid, n, noise)
+
+
+def _farthest_point_from(pts, valid, n: int, uniform: torch.Tensor) -> torch.Tensor:
+    """`farthest_point_sample` with its U[0, 1) draw `uniform` given."""
+    return _farthest_point_scan(pts, valid, n, (uniform + valid.to(pts.dtype)).argmax(dim=-1))
 
 
 def _farthest_point_scan(pts, valid, n: int, start: torch.Tensor) -> torch.Tensor:
@@ -146,6 +180,7 @@ class TeaserRefiner:
         self.n_iterations = n_iterations
         self.n_outer_iterations = n_outer_iterations
         self.use_fps = use_farthest_point_sampling
+        self._draws = SeededDraws()
 
     @torch.inference_mode()
     def refine(
@@ -159,17 +194,17 @@ class TeaserRefiner:
         """Returns refined TCO [B, 4, 4]; an instance with fewer than
         `n_min_points` correspondences or `min_num_inliers` inliers keeps
         its pose."""
-        if generator is None:
-            generator = default_generator(TCO.device)
         tgt_all, tgt_v = backproject_depth(depth_obs, K)
-        for _ in range(self.n_outer_iterations):
+        # one draw of the correspondences' shape an outer iteration
+        draws = self._draws(generator, [tgt_v.shape] * self.n_outer_iterations, TCO)
+        for uniform in draws:
             render = self.renderer_fn(self.assets, obj_ids, TCO, K, resolution=self.resolution)
             src_all, src_v = backproject_depth(render.depth, K)
             corr_v = src_v & tgt_v  # same-pixel correspondences
             if self.use_fps:
-                idx = farthest_point_sample(src_all, corr_v, self.n_points, generator)
+                idx = _farthest_point_from(src_all, corr_v, self.n_points, uniform)
             else:
-                idx = _subsample_idx(corr_v, self.n_points, generator)
+                idx = _subsample_idx(corr_v, self.n_points, uniform)
             dT, n_inl = gnc_tls_registration(
                 _take(src_all, idx), _take(tgt_all, idx), _take(corr_v, idx),
                 noise_bound=self.noise_bound, n_iterations=self.n_iterations,

@@ -42,10 +42,9 @@ def boxes_from_uv(uv: torch.Tensor) -> torch.Tensor:
 def masked_boxes_from_uv(uv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(xmin, ymin, xmax, ymax) over the valid points of uv [B, P, 2];
     mask [B, P] bool."""
-    inf = torch.tensor(float("inf"), dtype=uv.dtype, device=uv.device)
     m = mask[..., None]
-    mins = torch.where(m, uv, inf).amin(dim=1)
-    maxs = torch.where(m, uv, -inf).amax(dim=1)
+    mins = torch.where(m, uv, torch.inf).amin(dim=1)
+    maxs = torch.where(m, uv, -torch.inf).amax(dim=1)
     return torch.cat([mins, maxs], dim=-1)
 
 

@@ -14,6 +14,7 @@ import math
 import torch
 
 from happypose_tpu_torch.lib3d.transforms import invert_transforms, make_T
+from happypose_tpu_torch.utils.cuda_graphs import device_constant
 
 
 def _sphere_26_offsets():
@@ -51,7 +52,7 @@ def look_at_R(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor) -> torc
     x = torch.linalg.cross(f, up)
     xn = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     # degenerate (looking along up): fall back to a fixed right axis
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=f.dtype, device=f.device)
+    fallback = device_constant((1.0, 0.0, 0.0), f.dtype, f.device)
     x = torch.where(xn > 1e-6, x / torch.clamp(xn, min=1e-9), fallback.expand_as(f))
     y = torch.linalg.cross(f, x)
     return torch.stack([x, y, f], dim=-1)
@@ -74,7 +75,7 @@ def make_TCO_multiview(
     """
     B = TCO.shape[0]
     dtype, device = TCO.dtype, TCO.device
-    up = torch.tensor([0.0, -1.0, 0.0], dtype=dtype, device=device).expand(B, 3)
+    up = device_constant((0.0, -1.0, 0.0), dtype, device).expand(B, 3)
 
     views = []
     if not remove_TCO_rendering or multiview_type == "TCO":
@@ -85,7 +86,7 @@ def make_TCO_multiview(
         radius = torch.linalg.vector_norm(tCR, dim=-1, keepdim=True)  # [B, 1]
         R_c2r = look_at_R(torch.zeros_like(tCR), tCR, up)  # [B, 3, 3]
         for off in offsets:
-            off_t = torch.tensor(off, dtype=dtype, device=device)
+            off_t = device_constant(tuple(off), dtype, device)
             p_v = torch.einsum("bij,j->bi", R_c2r, off_t) * radius
             views.append(make_T(look_at_R(p_v, tCR, up), p_v))
 
@@ -96,12 +97,8 @@ def make_TCO_multiview(
         rots = [torch.eye(3, dtype=dtype, device=device)]
         for ang in (math.pi / 2, math.pi, 3 * math.pi / 2):
             ca, sa = math.cos(ang), math.sin(ang)
-            rots.append(
-                torch.tensor(
-                    [[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]],
-                    dtype=dtype, device=device,
-                )
-            )
+            rots.append(device_constant(
+                ((ca, -sa, 0.0), (sa, ca, 0.0), (0.0, 0.0, 1.0)), dtype, device))
         expanded = [
             make_T(
                 torch.einsum("ij,bvjk->bvik", Rz, TCV_O[..., :3, :3]),

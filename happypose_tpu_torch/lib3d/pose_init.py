@@ -8,15 +8,14 @@ from typing import Optional, Tuple
 import torch
 
 from happypose_tpu_torch.lib3d.transforms import make_T, transform_pts
+from happypose_tpu_torch.utils.cuda_graphs import device_constant
 
 # BOP20 z-up canonical orientation used for the CosyPose coarse init: object
 # z-up, camera looking along -x of the object frame.
-_ZUP = torch.tensor(
-    [[0.0, 1.0, 0.0, 0.0],
-     [0.0, 0.0, -1.0, 0.0],
-     [-1.0, 0.0, 0.0, 1.0],
-     [0.0, 0.0, 0.0, 1.0]]
-)
+_ZUP = ((0.0, 1.0, 0.0, 0.0),
+        (0.0, 0.0, -1.0, 0.0),
+        (-1.0, 0.0, 0.0, 1.0),
+        (0.0, 0.0, 0.0, 1.0))
 
 
 def TCO_init_from_boxes(
@@ -43,10 +42,9 @@ def _autodepth(
     if points_mask is None:
         hi, lo = C_pts.amax(dim=1), C_pts.amin(dim=1)
     else:
-        inf = torch.tensor(float("inf"), dtype=C_pts.dtype, device=C_pts.device)
         m = points_mask[..., None]
-        hi = torch.where(m, C_pts, -inf).amax(dim=1)
-        lo = torch.where(m, C_pts, inf).amin(dim=1)
+        hi = torch.where(m, C_pts, -torch.inf).amax(dim=1)
+        lo = torch.where(m, C_pts, torch.inf).amin(dim=1)
     delta = hi - lo  # [B, 2] (x, y) extents
     bb_dx = (boxes_2d[:, 2] - boxes_2d[:, 0]) + 1
     bb_dy = (boxes_2d[:, 3] - boxes_2d[:, 1]) + 1
@@ -85,7 +83,7 @@ def TCO_init_from_boxes_zup_autodepth(
     points_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """BOP20 init: the canonical z-up orientation + autodepth."""
-    R = _ZUP[:3, :3].to(dtype=boxes_2d.dtype, device=boxes_2d.device)
+    R = device_constant(tuple(row[:3] for row in _ZUP[:3]), boxes_2d.dtype, boxes_2d.device)
     return TCO_init_from_boxes_autodepth_with_R(
         boxes_2d, model_points_3d, K, R, points_mask
     )

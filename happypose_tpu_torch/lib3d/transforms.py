@@ -8,6 +8,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from happypose_tpu_torch.lib3d.rotations import euler_to_rotmat, rotmat_from_ortho6d
+from happypose_tpu_torch.utils.cuda_graphs import device_constant
 
 
 def transform_pts(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -33,8 +34,7 @@ def make_T(
     R = R.expand(batch + (3, 3)).to(dtype)
     t = t.expand(batch + (3,)).to(dtype)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=R.device)
-    bottom = bottom.expand(batch + (1, 4))
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), dtype, R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -45,6 +45,10 @@ _N_COUNTERS = 68  # int32 words of the kernels' zeroed scratch (raster_fused.cu)
 
 # Kernel launches since the last reset (the CPU path never counts).
 launches = 0
+# The name of the kernel that one launch runs once (`csrc/raster_fused.cu`),
+# by which a device trace counts launches (a CUDA graph's replay runs no
+# Python, so it does not add to `launches`).
+KERNEL_NAME = "raster_kernel"
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -89,7 +89,9 @@ def main(argv=None) -> int:
         det = DetectionBatch.from_numpy(
             np.stack([obs.bboxes[j] for j in keep]).astype(np.float32),
             np.asarray([label_to_id[obs.obj_labels[j]] for j in keep]), device=dev)
-        coarse = estimator.forward_coarse(ObservationBatch.from_numpy(obs.rgb, obs.K, device=dev), det)
+        # one CUDA graph a detection count, as JAX's script jits the stage
+        coarse = estimator.forward_coarse_jit(
+            ObservationBatch.from_numpy(obs.rgb, obs.K, device=dev), det)
         logits = coarse.coarse_logits.reshape(D, M).cpu().numpy()
 
         for d, j in enumerate(keep):

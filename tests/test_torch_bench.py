@@ -384,7 +384,7 @@ def cli(monkeypatch, capsys):
 
     def pipeline(n_images=8, so3_grid=0, device="cuda"):
         calls.append((n_images, so3_grid))
-        return bench.pipeline_line(0.5), {"compute_dtype": "float32, tf32 off", "launches": 171,
+        return bench.pipeline_line(0.5), {"compute_dtype": "float32, tf32 off", "launches": 38,
                                           "launches_per_frame": 19, "frames": 9}
 
     def breakdown(device="cuda"):
@@ -424,7 +424,8 @@ def test_pipeline_line_for_each_argv(jax_bench, cli, argv, so3):
     line = json.loads(lines[-1])
     _same_line(line, _jax_line_dicts(jax_bench)["pipeline_bench"])
     assert line["vs_baseline"] == round(39.7 / 0.5, 2)
-    assert "launches 171 (19 a frame x 9 frames expected)" in lines[2]
+    assert ("launches 38 (expected 2 x 19: the frame graph's warm-up and capture; its 9 "
+            "replays launch on the device)") in lines[2]
     assert "compute_dtype float32, tf32 off" in lines[2]
 
 

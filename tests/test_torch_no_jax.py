@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                  "scripts.preprocess_object_dataset", "scripts.download",
                  "scripts.run_accuracy_demo", "parallel", "parallel.distributed",
                  "parallel.mesh", "parallel.collectives", "lib3d", "meshes", "datasets",
-                 "inference", "evaluation", "utils.flax_msgpack"):
+                 "inference", "evaluation", "utils.flax_msgpack",
+                 "utils.cuda_graphs"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

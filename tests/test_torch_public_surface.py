@@ -445,7 +445,8 @@ def test_every_jax_parameter_has_its_namesake_in_the_port():
     come first in the port's positional order, in JAX's order, so that a
     call written for JAX means the same in the port. `PARAMS`,
     `NOT_PORTED_METHODS` and `FLAX_FIELDS` list the JAX idioms with their
-    reasons; `*_jit` wrappers are dropped (ROADMAP, not to port)."""
+    reasons; the `*_jit` entry points are CUDA graphs with JAX's
+    signatures (`utils/cuda_graphs.py`), held like every other name."""
     jax_root = Path(happypose_tpu.__file__).parent
     port_root = Path(happypose_tpu_torch.__file__).parent
     faults, used = {}, set()
@@ -456,7 +457,7 @@ def test_every_jax_parameter_has_its_namesake_in_the_port():
         port = _signatures(port_root / rel) if (port_root / rel).exists() else {}
         for name, (jpos, jkw, _, flax) in _signatures(path).items():
             method = name.split(".")[-1]
-            if (name in (NOT_PORTED.get(rel) or ()) or method.endswith("_jit")
+            if (name in (NOT_PORTED.get(rel) or ())
                     or "." in name and method in NOT_PORTED_METHODS):
                 continue
             key = f"{rel}::{name}"

@@ -250,7 +250,12 @@ def test_run_eval_summary_matches_jax(predictions, world, kind):
 
 
 class _Recorder:
-    """Stands in for an estimator; notes when the pipeline ran."""
+    """Stands in for an estimator; notes when the pipeline ran (the runner
+    calls the graphed pipeline, `run_inference_pipeline_jit`, of an
+    estimator without a device mesh)."""
+
+    device_mesh = None
+    _pipeline_jit_cache = ()  # no graphs: no frame key is ever added
 
     def __init__(self, events):
         self.events = events
@@ -263,6 +268,8 @@ class _Recorder:
             poses=torch.eye(4).repeat(n, 1, 1), K=obs.K.expand(n, 3, 3), obj_ids=det.obj_ids,
             batch_im_ids=z, instance_ids=z, hypothesis_ids=z, scores=det.scores,
             coarse_logits=det.scores, pose_logits=det.scores, valid=torch.ones(n, dtype=torch.bool))}
+
+    run_inference_pipeline_jit = run_inference_pipeline
 
 
 def test_every_time_is_read_after_a_synchronization(world, monkeypatch):
