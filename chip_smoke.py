@@ -114,11 +114,16 @@ Phases (any failure raises, so the exit code is nonzero):
    set (a UV-textured sphere and a box, 768 faces padded; f = 300 px):
    the refiner (ResNet34, 240x320 rgb + normals renders, 480x640 images,
    B = 16, 3 iterations, Adam lr 3e-4, 2 warmup steps) and the coarse grid
-   loss (ResNet34 classifier, 8 hypotheses, B = 8), 6 steps each: 1 + 3 and
-   2 launches a step, finite losses, no skipped step, every parameter and
-   BatchNorm statistic moved; s/step of steps 2-6 (the synthetic batch
-   included, and alone), samples/s, peak memory.
-21. The skip on the card: a NaN pixel in a refiner batch; the step reports
+   loss (ResNet34 classifier, 8 hypotheses, B = 8), 6 steps each through
+   the graphed step and the synthetic batch's graph: the wrapper's launches
+   are the first step's warm-up and capture (2 x 3 and 2 x 1, + 2 for a new
+   synthetic batch key) and none for a replay; one profiled step (batch and
+   step, both replays) holds 1 + 3 and 2 rasterizing kernels in its device
+   trace; finite losses, no skipped step, every parameter and BatchNorm
+   statistic moved; s/step of steps 2-6 (the synthetic batch included, and
+   alone), samples/s, peak memory.
+21. The skip on the card: a NaN pixel in a refiner batch; the step (a
+   replay: no wrapper launch, 3 rasterizing kernels in its trace) reports
    `skipped_nonfinite` 1 and the parameters, BatchNorm buffers, Adam's
    state and the schedule's count are bit-equal to before.
 22. bfloat16: both losses at full width with `compute_dtype="bfloat16"`, 3
@@ -130,7 +135,8 @@ Phases (any failure raises, so the exit code is nonzero):
    refiner and a coarse run directory (2 epochs of 32, batch 8, 240x320),
    `eval_refiner_checkpoint` measures the refiner, and `run_eval --model
    from-checkpoints` reads both runs on 2 frames of phase 15's split: every
-   pose finite, launches as the configs imply.
+   pose finite, launches as the configs imply (the training and refine
+   graphs: each key's warm-up and capture).
 25. The recorder (`datasets/scene_record.py`) at full width: the "textured"
    set of phase 20 under BOP labels plus the floor (512 faces), 2-4
    objects a scene, 480x640, 16 scenes a batch (M = 80 instances), shadows
@@ -146,8 +152,9 @@ Phases (any failure raises, so the exit code is nonzero):
 27. Pose training from that split at full width: the refiner (ResNet34,
    240x320 rgb + normals, 480x640 images, B = 16, 3 iterations), 6 steps
    through `PoseDataset` with `device_cache` and 6 through
-   `StreamingPoseDataset`: finite losses, 3 launches a step, s/step of
-   steps 2-6 beside phase 20's synthetic s/step, peak memory;
+   `StreamingPoseDataset` (one graph: its capture's launches, then
+   replays, 3 rasterizing kernels in a replay's trace): finite losses,
+   s/step of steps 2-6 beside phase 20's synthetic s/step, peak memory;
    `device_cache` batches equal the host path's bit for bit; then
    `eval_refiner_checkpoint --split-dir` on the run (3 launches a batch).
 28. Detector training at full width (ResNet50-FPN, 256 channels, 16
@@ -209,7 +216,8 @@ Phases (any failure raises, so the exit code is nonzero):
    and the frame's count); `run_pose_training --dp` at phase 20's width (3
    steps, one an epoch) against the run without (the first step's losses
    and gradient norm; only rank 0 writes), then under `torchrun
-   --standalone --nproc-per-node 1`; `schur_sharded` bundle adjustment at
+   --standalone --nproc-per-node 1` (the `--dp` step captured with its
+   NCCL collectives); `schur_sharded` bundle adjustment at
    8 views x 15 objects against `schur` (one step's poses at lambda 1e4, the
    solve's outcome); a render through the object-sharded `select` against
    the whole database's (bit-equal).
@@ -254,6 +262,23 @@ Phases (any failure raises, so the exit code is nonzero):
    the multiview candidates, the JAX run directories) serves one frame
    graph a detection count, so the wrapper counts the first frame of each
    count twice and the replays not at all (`_runner_launches`).
+42. Graphed training (`training/trainer.py`: the train step as one CUDA
+   graph replay) at phase 20's width, the ResNet34 refiner (B = 16, 3
+   iterations) and the coarse grid (B = 8 x 8): from copies of one seeded
+   state, the graphed step and the eager body twice, 5 steps each at a rate
+   that changes every applied step (3 warm-up updates, a decay at the
+   fourth), the third step skipped by phase 21's NaN pixel; with cuDNN
+   deterministic, after every step the parameters, buffers, Adam's state
+   and the counts of the graph equal the eager body's within the eager
+   bodies' own gap (bit for bit where that is 0); one update a call (the
+   first call's warm-up is its step; the capture runs nothing); a replay of
+   the synthetic batch and the step traces 4 and 2 rasterizing kernels;
+   s/step of graph and eager (deterministic, and in turns with cuDNN's
+   default algorithms, the graph's other key), busy share of a replay,
+   capture seconds and pool bytes beside the card's name and power limit.
+   Phases 20-22, 24, 27-29, 35, 36, 38 and 40 train through the graphed
+   step too: the wrapper counts each key's warm-up and capture
+   (`_graph_launches`), device traces the replays.
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -1817,29 +1842,63 @@ def _train_steps(w, n_steps, first=0):
     return metrics, times, data_times, launches
 
 
-def _profile_line(fn) -> str:
-    """One call of `fn` under `torch.profiler`: its wall time, the device
-    kernels and copies and their time (the device's busy share), and the
-    kernels that take most of it."""
+def _profile(fn) -> tuple:
+    """One call of `fn` under `torch.profiler`: (a line with its wall time,
+    the device kernels and copies and their time (the device's busy share)
+    and the kernels that take most of it; the rasterizing kernels among
+    them, counted on the device, so a CUDA graph's replay counts too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(fn)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: e.device_time_total, reverse=True)[:6]
+    raster = sum(e.count for e in device if rf.KERNEL_NAME in e.key)
     return (f"{wall * 1e3:.1f} ms, {sum(e.count for e in device)} device kernels and copies "
-            f"taking {busy:.1f} ms (busy {busy / (wall * 1e3):.2f}); most device time: "
+            f"taking {busy:.1f} ms (busy {busy / (wall * 1e3):.2f}), {raster} rasterizing; "
+            "most device time: "
             + ", ".join(f"{e.key[:60]} x{e.count} {e.device_time_total / 1e3:.1f} ms"
-                        for e in top))
+                        for e in top)), raster
 
 
-def _step_profile(w, i) -> str:
-    """One train step of `w` under `torch.profiler` (`_profile_line`)."""
-    b = w.batch(i)
-    d = w.draws(b, i)
-    return "profiled step (batch outside) " + _profile_line(lambda: w.step(w.state, b, d))
+def _step_profile(w, i, per_step: int) -> str:
+    """One train step of `w` with its synthetic batch under
+    `torch.profiler` (`_profile`): a replay of each graph, whose
+    `per_step` rasterizing kernels the trace counts."""
+    def step():
+        b = w.batch(i)
+        w.step(w.state, b, w.draws(b, i))
+
+    line, raster = _profile(step)
+    assert raster == per_step, f"{raster} rasterizing kernels in a step's trace, expected {per_step}"
+    return "profiled step (synthetic batch and step, both replays) " + line
+
+
+def _synth_keys() -> int:
+    """Keys of the synthetic batch's graphs so far (one a shape)."""
+    from happypose_tpu_torch.training.synth_data import synth_batch_graphs
+
+    return len(synth_batch_graphs)
+
+
+def _graph_launches(per_call: int, new_keys: int) -> int:
+    """The wrapper's launches of a graphed function that launches the kernel
+    `per_call` times: each new key's warm-up and capture; a replay runs no
+    Python and adds none (its launches are counted in device traces)."""
+    return 2 * per_call * new_keys
+
+
+def _step_launches(per_step: int, n_steps: int, new_synth: int) -> list:
+    """The wrapper's launches of each of `n_steps` steps of a fresh train
+    step that renders `per_step - 1` times, each with its synthetic batch
+    (one launch): the first captures the step and the batch's `new_synth`
+    new keys; the others replay."""
+    first = _graph_launches(per_step - 1, 1) + _graph_launches(1, new_synth)
+    return [first] + [0] * (n_steps - 1)
 
 
 def phase_training(dev) -> tuple:
@@ -1854,7 +1913,9 @@ def phase_training(dev) -> tuple:
         before = _parameters_and_buffers(w.model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        k0 = _synth_keys()
         metrics, times, data_times, n_launch = _train_steps(w, TRAIN_STEPS)
+        expected = _step_launches(per_step, TRAIN_STEPS, _synth_keys() - k0)
         peak = torch.cuda.max_memory_allocated() / 2**30
         after = _parameters_and_buffers(w.model)
         unmoved = [k for k in before if not k.endswith("num_batches_tracked")
@@ -1866,27 +1927,29 @@ def phase_training(dev) -> tuple:
                  if role == "coarse" else "")
         log(f"train {role} full width (ResNet34, render {RES}, images {FRAME_RES}, B={w.B}"
             f"{', 3 iterations' if role == 'refiner' else f', {GRID_HYPOTHESES} hypotheses'}): "
-            f"launches a step {n_launch}, expected {per_step}; loss "
+            f"wrapper launches a step {n_launch}, expected {expected} (the first step's "
+            f"warm-up and capture; {per_step} a replayed step in its device trace); loss "
             f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
             f"{[round(m['grad_norm'], 3) for m in metrics]}{extra}; s/step (steps 2-{TRAIN_STEPS}, "
             f"batch included) {_fmt(times[1:])}, of it the synthetic batch "
             f"{figures[role]['s_batch']:.4f}; {figures[role]['samples_per_s']:.1f} samples/s; "
             f"peak memory {peak:.2f} GiB; first step {times[0]:.3f} s")
-        assert n_launch == [per_step] * TRAIN_STEPS, f"{role}: launches {n_launch}"
+        assert n_launch == expected, f"{role}: launches {n_launch}"
         assert all(math.isfinite(m["loss"]) and m["loss"] > 0 for m in metrics)
         assert all(m["skipped_nonfinite"] == 0 for m in metrics)
         assert not unmoved, f"{role}: parameters or BatchNorm statistics did not move: {unmoved[:5]}"
         launches[f"train {role} ({TRAIN_STEPS} steps)"] = sum(n_launch)
-        log(f"train {role}: " + _step_profile(w, TRAIN_STEPS))
+        log(f"train {role}: " + _step_profile(w, TRAIN_STEPS, per_step))
         if role == "refiner":
             refiner = w
     return figures, launches, refiner
 
 
 def phase_training_skip(dev, w) -> int:
-    """A NaN pixel in one image of a full-width refiner batch: the step is
-    skipped and the parameters, BatchNorm buffers, Adam's state and the
-    schedule's count are bit-equal to before."""
+    """A NaN pixel in one image of a full-width refiner batch: the step (a
+    replay of phase 20's graph, its rasterizing kernels counted in its
+    device trace) is skipped and the parameters, BatchNorm buffers, Adam's
+    state and the schedule's count are bit-equal to before."""
     from happypose_tpu_torch.ops import rasterizer_fused as rf
 
     b = w.batch(1000)
@@ -1898,17 +1961,20 @@ def phase_training_skip(dev, w) -> int:
             for i, st in w.state.optimizer.adam.state_dict()["state"].items()}
     count, n_step = w.state.optimizer.count, w.state.step
     rf.launches = 0
-    m = w.step(w.state, b, draws)
-    launches = rf.launches
+    out = []
+    line, traced = _profile(lambda: out.append(w.step(w.state, b, draws)))
+    m, launches = out[0], rf.launches
     after = _parameters_and_buffers(w.model)
     adam_after = w.state.optimizer.adam.state_dict()["state"]
     same = all(torch.equal(before[k], after[k]) for k in before) and all(
         torch.equal(v, adam_after[i][k]) for i in adam for k, v in adam[i].items())
     log(f"train skip: a NaN pixel in the last of {w.B} images: skipped_nonfinite {m['skipped_nonfinite']}, "
         f"loss {m['loss']}, grad_norm {m['grad_norm']}; parameters, buffers and Adam's state "
-        f"bit-equal {same}; count {count} -> {w.state.optimizer.count}; {launches} launches")
+        f"bit-equal {same}; count {count} -> {w.state.optimizer.count}; {launches} wrapper "
+        f"launches (a replay), {traced} rasterizing kernels in its trace ({line})")
     assert m["skipped_nonfinite"] == 1.0 and m["loss"] == 0.0 and m["grad_norm"] == 0.0
     assert same and w.state.optimizer.count == count and w.state.step == n_step + 1
+    assert launches == 0 and traced == REFINER_ITERATIONS, (launches, traced)
     return launches
 
 
@@ -2025,26 +2091,31 @@ def phase_train_cli(dev, root: Path, data: dict) -> dict:
               "--device", str(dev)]
     n_steps = CLI_EPOCHS * (CLI_EPOCH_SIZE // CLI_BATCH)
     launches = {}
-    for role, extra, per_step in (("refiner", ["--n-iterations", "2"], 3),
-                                  ("coarse", ["--model-type", "coarse"], 2)):
-        rf.launches = 0
+    for role, extra, per_step in (("refiner", ["--n-iterations", "2"], 2),
+                                  ("coarse", ["--model-type", "coarse"], 1)):
+        rf.launches, k0 = 0, _synth_keys()
         rc, t = _timed(lambda: run_pose_training.main(["--run-dir", str(runs / role)] + common + extra))
+        # the step's key and the synthetic batch's new ones: warm-up and capture
+        expected = _graph_launches(per_step, 1) + _graph_launches(1, _synth_keys() - k0)
         launches[f"run_pose_training {role} ({n_steps} steps)"] = rf.launches
         lines = [json.loads(x) for x in (runs / role / "log.txt").read_text().splitlines()]
-        log(f"run_pose_training {role}: {t:.2f} s, launches {rf.launches} (expected "
-            f"{n_steps * per_step}); epochs {[{k: round(v, 4) for k, v in x.items()} for x in lines]}")
-        assert rc == 0 and rf.launches == n_steps * per_step and len(lines) == CLI_EPOCHS
+        log(f"run_pose_training {role}: {t:.2f} s, {n_steps} steps, wrapper launches "
+            f"{rf.launches} (expected {expected}); epochs "
+            f"{[{k: round(v, 4) for k, v in x.items()} for x in lines]}")
+        assert rc == 0 and rf.launches == expected and len(lines) == CLI_EPOCHS
         assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in lines)
 
-    rf.launches = 0
+    rf.launches, k0 = 0, _synth_keys()
     rc, t = _timed(lambda: eval_refiner_checkpoint.main([
         "--run-dir", str(runs / "refiner"), "--n-batches", "2", "--batch-size", str(CLI_BATCH),
         "--image-size", *map(str, FRAME_RES), "--n-iterations", "3", "--device", str(dev)]))
     summary = json.loads((runs / "refiner" / "refiner_eval.json").read_text())
+    # the refine graph's key (3 iterations) and the synthetic batch's new ones
+    expected = _graph_launches(3, 1) + _graph_launches(1, _synth_keys() - k0)
     launches["eval_refiner_checkpoint (2 batches)"] = rf.launches
-    log(f"eval_refiner_checkpoint: {t:.2f} s, launches {rf.launches}; "
+    log(f"eval_refiner_checkpoint: {t:.2f} s, launches {rf.launches} (expected {expected}); "
         f"{ {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }")
-    assert rc == 0 and rf.launches == 2 * (1 + 3)
+    assert rc == 0 and rf.launches == expected
     assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
 
     icfg = spec_from_checkpoints({"refiner": runs / "refiner", "coarse": runs / "coarse"}).inference_cfg
@@ -2294,6 +2365,9 @@ def phase_train_from_disk(dev, root: Path, split: dict, synth_s_step: float) -> 
         assert all(torch.equal(x, y) for x, y in zip(a, b)), "device_cache differs from the host path"
     w = _disk_world(dev, split)
     figures, launches = {}, {}
+    # the first step captures the step (its warm-up and capture); the rest,
+    # the streamed ones too (the same key), replay
+    expected = iter(_step_launches(1 + REFINER_ITERATIONS, DISK_STEPS, 0) + [0] * DISK_STEPS)
     stream = StreamingPoseDataset(str(split["split"] / "wds"), split["db"], chunk_frames=16, **kw)
     try:
         for name, it in (("pose_dataset_device_cache", cached), ("streaming", iter(stream))):
@@ -2316,13 +2390,17 @@ def phase_train_from_disk(dev, root: Path, split: dict, synth_s_step: float) -> 
                              "s_batch": statistics.median(data_times[1:]),
                              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
             launches[f"train refiner from disk, {name} ({DISK_STEPS} steps)"] = sum(n_launch)
+            want = [next(expected) for _ in range(DISK_STEPS)]
+            b = next(it)
+            line, traced = _profile(lambda: w.step(w.state, b, w.draws(b, DISK_STEPS)))
             log(f"train refiner from disk via {name} (ResNet34, render {RES}, images {FRAME_RES}, "
-                f"B={B}, 3 iterations): launches a step {n_launch}, expected {REFINER_ITERATIONS}; "
+                f"B={B}, 3 iterations): wrapper launches a step {n_launch}, expected {want}; "
+                f"a replayed step's trace: {line}; "
                 f"loss {[round(m['loss'], 5) for m in metrics]}; s/step (steps 2-{DISK_STEPS}, "
                 f"batch included) {_fmt(times[1:])}, of it the batch {figures[name]['s_batch']:.4f}; "
                 f"beside phase 20's synthetic {synth_s_step:.4f}; "
                 f"{figures[name]['samples_per_s']:.1f} samples/s; peak {figures[name]['peak_gib']:.2f} GiB")
-            assert n_launch == [REFINER_ITERATIONS] * DISK_STEPS, n_launch
+            assert n_launch == want and traced == REFINER_ITERATIONS, (n_launch, traced)
             assert all(math.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0 for m in metrics)
     finally:
         stream.stop()
@@ -2336,9 +2414,10 @@ def phase_train_from_disk(dev, root: Path, split: dict, synth_s_step: float) -> 
         *map(str, FRAME_RES), "--n-iterations", "3", "--device", str(dev)]))
     summary = json.loads((run / "refiner_eval.json").read_text())
     launches["eval_refiner_checkpoint --split-dir (2 batches)"] = rf.launches
-    log(f"eval_refiner_checkpoint --split-dir: {t:.2f} s, launches {rf.launches} (expected 6); "
-        f"{ {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }")
-    assert rc == 0 and rf.launches == 2 * 3 and summary["data"] == str(split["split"])
+    expected = _graph_launches(3, 1)  # the refine graph's key; the second batch replays
+    log(f"eval_refiner_checkpoint --split-dir: {t:.2f} s, launches {rf.launches} (expected "
+        f"{expected}); { {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)} }")
+    assert rc == 0 and rf.launches == expected and summary["data"] == str(split["split"])
     assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
     return {"figures": figures, "launches": launches}
 
@@ -2435,9 +2514,10 @@ def phase_training_clis(dev, root: Path, split: dict) -> dict:
         *map(str, FRAME_RES), "--device", str(dev)]))
     launches["run_pose_training --stream (2 steps)"] = rf.launches
     (line,) = [json.loads(x) for x in (root / "stream_run" / "log.txt").read_text().splitlines()]
-    log(f"run_pose_training --data --stream: {t:.2f} s, launches {rf.launches} (expected 2), "
-        f"loss {line['loss']:.5f}")
-    assert rc == 0 and rf.launches == 2 and math.isfinite(line["loss"])
+    expected = _graph_launches(1, 1)  # one iteration: the step's warm-up and capture
+    log(f"run_pose_training --data --stream: {t:.2f} s, launches {rf.launches} (expected "
+        f"{expected}), loss {line['loss']:.5f}")
+    assert rc == 0 and rf.launches == expected and math.isfinite(line["loss"])
 
     det_run = root / "det_run"
     rc, t = _timed(lambda: run_detector_training.main([
@@ -2996,7 +3076,9 @@ def phase_backbone_training(dev) -> tuple:
         w = _train_world(dev, role, backbone=backbone, B=TRAIN_BATCH[role], compute_dtype=dtype)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        k0 = _synth_keys()
         metrics, times, data_times, n_launch = _train_steps(w, n_steps)
+        expected = _step_launches(per_step, n_steps, _synth_keys() - k0)
         peak = torch.cuda.max_memory_allocated() / 2**30
         s_step = statistics.median(times[1:])
         name = f"{backbone} {role} {dtype}"
@@ -3004,17 +3086,17 @@ def phase_backbone_training(dev) -> tuple:
                          "s_batch": statistics.median(data_times[1:])}
         log(f"train {name} full width (render {RES}, images {FRAME_RES}, B={w.B}"
             f"{', 3 iterations' if role == 'refiner' else f', {GRID_HYPOTHESES} hypotheses'}): "
-            f"launches a step {n_launch}, expected {per_step}; loss "
+            f"wrapper launches a step {n_launch}, expected {expected}; loss "
             f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
             f"{[round(m['grad_norm'], 3) for m in metrics]}; s/step (steps 2-{n_steps}, batch "
             f"included) {_fmt(times[1:])}, of it the synthetic batch "
             f"{figures[name]['s_batch']:.4f}; {figures[name]['samples_per_s']:.1f} samples/s; "
             f"peak memory {peak:.2f} GiB; first step {times[0]:.3f} s")
-        assert n_launch == [per_step] * n_steps, f"{name}: launches {n_launch}"
+        assert n_launch == expected, f"{name}: launches {n_launch}"
         assert all(math.isfinite(m["loss"]) and m["loss"] > 0 for m in metrics)
         assert all(m["skipped_nonfinite"] == 0 for m in metrics)
         launches[f"train {name} ({n_steps} steps)"] = sum(n_launch)
-        log(f"train {name}: " + _step_profile(w, n_steps))
+        log(f"train {name}: " + _step_profile(w, n_steps, per_step))
         del w
     launches["train cut cuda efficientnet_b3 (1 step)"] = phase_training_cross_check(
         dev, backbone="efficientnet_b3")
@@ -3072,16 +3154,17 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
     n_steps = BB_CLI_EPOCHS * (BB_CLI_EPOCH_SIZE // BB_CLI_BATCH)
     launches = {}
     for name, extra, per_step in (
-            ("b3_refiner", ["--backbone", "efficientnet_b3", "--n-iterations", "2"], 3),
-            ("b3_coarse", ["--backbone", "efficientnet_b3", "--model-type", "coarse"], 2),
-            ("flownet_refiner", ["--backbone", "flownet", "--n-iterations", "2"], 3)):
-        rf.launches = 0
+            ("b3_refiner", ["--backbone", "efficientnet_b3", "--n-iterations", "2"], 2),
+            ("b3_coarse", ["--backbone", "efficientnet_b3", "--model-type", "coarse"], 1),
+            ("flownet_refiner", ["--backbone", "flownet", "--n-iterations", "2"], 2)):
+        rf.launches, k0 = 0, _synth_keys()
         rc, t = _timed(lambda: run_pose_training.main(["--run-dir", str(runs / name)] + common + extra))
+        expected = _graph_launches(per_step, 1) + _graph_launches(1, _synth_keys() - k0)
         launches[f"run_pose_training {name} ({n_steps} steps)"] = rf.launches
         lines = [json.loads(x) for x in (runs / name / "log.txt").read_text().splitlines()]
-        log(f"run_pose_training {name}: {t:.2f} s, launches {rf.launches} (expected "
-            f"{n_steps * per_step}); loss {[round(x['loss'], 4) for x in lines]}")
-        assert rc == 0 and rf.launches == n_steps * per_step and len(lines) == BB_CLI_EPOCHS
+        log(f"run_pose_training {name}: {t:.2f} s, {n_steps} steps, wrapper launches "
+            f"{rf.launches} (expected {expected}); loss {[round(x['loss'], 4) for x in lines]}")
+        assert rc == 0 and rf.launches == expected and len(lines) == BB_CLI_EPOCHS
         assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in lines)
 
     from happypose_tpu_torch.inference.types import InferenceConfig
@@ -3098,23 +3181,25 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
     # mesh's rows of phase 3 share their batch and resolution only), but for
     # the batch of scenes, phase 3's training row
     held = {(TRAIN_BATCH["refiner"], FRAME_RES)}
-    # a batch: its scenes (1 launch), then the pipeline on one detection a scene
+    # a batch: its scenes (the synthetic batch's graph: a new key's warm-up
+    # and capture, else a replay), then the pipeline on one detection a scene
     for name, dirs, per_batch in (
             ("efficientnet_b3 refiner + coarse",
              ["--refiner-dir", str(runs / "b3_refiner"), "--coarse-dir", str(runs / "b3_coarse")],
-             1 + _frame_launches(icfg, DEMO_BATCH, DEMO_GRID)),
+             _frame_launches(icfg, DEMO_BATCH, DEMO_GRID)),
             ("flownet refiner", ["--refiner-dir", str(runs / "flownet_refiner")],
-             1 + math.ceil(DEMO_BATCH / icfg.bsz_objects) * DEMO_ITERATIONS)):
+             math.ceil(DEMO_BATCH / icfg.bsz_objects) * DEMO_ITERATIONS)):
         out = root / "accuracy_demo.json"
         inputs = _KernelInputs()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated() / 2**30
         with _StageClock() as clock, inputs:
-            rf.launches = 0
+            rf.launches, k0 = 0, _synth_keys()
             rc, t = _timed(lambda: run_accuracy_demo.main(
                 dirs + demo_args + ["--out", str(out), "--device", str(dev)]))
             n = rf.launches
+            synth = _graph_launches(1, _synth_keys() - k0)
         peak = torch.cuda.max_memory_allocated() / 2**30 - resident
         summary = json.loads(out.read_text())
         stages = {k: round(sum(v) / n_batches, 4) for k, v in clock.seconds.items() if v}
@@ -3124,14 +3209,14 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
         log(f"run_accuracy_demo {name}: {t:.2f} s for {n_batches} batches of {DEMO_BATCH} scenes "
             f"({t / n_batches:.3f} s a batch, models loaded and first calls included); stage "
             f"seconds a batch {stages}; peak memory {peak:.2f} GiB above the resident; launches "
-            f"{n} (expected {per_batch * n_batches}); summary {json.dumps(summary)}")
-        assert rc == 0 and n == per_batch * n_batches, (n, per_batch * n_batches)
+            f"{n} (expected {per_batch * n_batches + synth}); summary {json.dumps(summary)}")
+        assert rc == 0 and n == per_batch * n_batches + synth, (n, per_batch * n_batches + synth)
         assert summary["n_scenes"] == DEMO_SCENES
         # what bounds the slowest stage: its last call again, under the profiler
         stage = max(stages, key=stages.get)
         fn, est, a, kw = clock.last_call[stage]
         log(f"run_accuracy_demo {name}: one {stage} call of a batch, profiled: "
-            + _profile_line(lambda: fn(est, *a, **kw)))
+            + _profile(lambda: fn(est, *a, **kw))[0])
         assert all(math.isfinite(v) for v in summary.values() if isinstance(v, float))
         _check_new_shapes("accuracy_demo_textured", inputs, kernel, held=held)
     return {"figures": figures, "launches": launches}
@@ -3353,11 +3438,15 @@ def phase_sharded(dev, root: Path, scene: Path) -> dict:
               "--image-size", *map(str, FRAME_RES), "--device", str(dev)]
     logs, seconds = {}, {}
     for name, extra in (("single", []), ("dp", ["--dp"])):
-        rf.launches = 0
+        rf.launches, k0 = 0, _synth_keys()
         rc, seconds[name] = _timed(lambda: run_pose_training.main(
             ["--run-dir", str(runs / name)] + common + extra))
         launches[f"run_pose_training {name} ({DP_STEPS} steps)"] = rf.launches
-        assert rc == 0 and rf.launches == DP_STEPS * (1 + REFINER_ITERATIONS), rf.launches
+        # the step's key (--dp: its NCCL collectives captured with it) and the
+        # synthetic batch's new ones: warm-up and capture; the later steps replay
+        expected = (_graph_launches(REFINER_ITERATIONS, 1)
+                    + _graph_launches(1, _synth_keys() - k0))
+        assert rc == 0 and rf.launches == expected, (rf.launches, expected)
         logs[name] = [json.loads(x) for x in (runs / name / "log.txt").read_text().splitlines()]
         assert len(logs[name]) == DP_STEPS
         assert all(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0 for x in logs[name])
@@ -3631,11 +3720,14 @@ def phase_jax_run_dirs(dev, root: Path, data: dict, kernel: dict) -> dict:
     shutil.copytree(pt_dir, again)
     resumed = {}
     for d in (pt_dir, flax_dir, again):
-        rf.launches = 0
+        rf.launches, k0 = 0, _synth_keys()
         rc, t = _timed(lambda: run_pose_training.main(
             ["--run-dir", str(d), "--epochs", "4", "--resume"] + common))
         lines = [json.loads(x) for x in (d / "log.txt").read_text().splitlines()]
-        resumed[d.name] = dict(rc=rc, launches=rf.launches, lines=lines, seconds=t)
+        # the resumed step's key (2 iterations) and the synthetic batch's new ones
+        expected = _graph_launches(2, 1) + _graph_launches(1, _synth_keys() - k0)
+        resumed[d.name] = dict(rc=rc, launches=rf.launches, lines=lines, seconds=t,
+                               expected=expected)
         launches[f"run_pose_training --resume from {d.name} (2 steps)"] = rf.launches
     pt, fx = resumed["pt"], resumed["flax"]
 
@@ -3648,8 +3740,10 @@ def phase_jax_run_dirs(dev, root: Path, data: dict, kernel: dict) -> dict:
         f"TrainState {[x['loss'] for x in fx['lines'][2:]]} ({fx['seconds']:.2f} s): the first "
         f"step's equal, the second's {second:.3g} apart; the port's resume run again: "
         f"{[x['loss'] for x in resumed['pt_again']['lines'][2:]]}, the second {repeat:.3g} "
-        f"apart; launches {pt['launches']}, {fx['launches']} (expected {2 * 3})")
-    assert pt["rc"] == fx["rc"] == 0 and pt["launches"] == fx["launches"] == 2 * 3
+        f"apart; launches {pt['launches']}, {fx['launches']} (expected {pt['expected']}, "
+        f"{fx['expected']})")
+    assert pt["rc"] == fx["rc"] == 0
+    assert pt["launches"] == pt["expected"] and fx["launches"] == fx["expected"]
     assert [x["epoch"] for x in fx["lines"]] == [0, 1, 2, 3]
     first_pt, first_fx = pt["lines"][2], fx["lines"][2]
     assert all(first_pt[k] == first_fx[k] for k in first_pt if k != "time"), (first_pt, first_fx)
@@ -4054,6 +4148,148 @@ def phase_graphs(dev, kernel: dict) -> dict:
     return {"launches": launches, "traced": traced, "figures": figures}
 
 
+# ------------------------------------------------------- graphed training (42)
+
+GT_STEPS = 5  # steps of each copy: a warm-up of 3 updates, a decay at update 4
+GT_NAN_STEP = 2  # the step whose batch holds phase 21's NaN pixel (skipped)
+GT_TIMED = 4  # steps of graph and eager each, in turns, with cuDNN's default algorithms
+
+
+def _train_state_tensors(state) -> list:
+    """Parameters, buffers, Adam's state and the count of a train state."""
+    return ([t.detach() for t in state.model.state_dict().values()]
+            + state.optimizer.state_tensors())
+
+
+def _gt_copy(w, role):
+    """A train state and step on a copy of `w`'s initial model, with the
+    rate schedule of phase 42: 3 warm-up updates, a decay at update 3."""
+    import copy
+
+    from happypose_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from happypose_tpu_torch.training.forward_loss import (
+        make_coarse_grid_loss_fn, make_refiner_loss_fn,
+    )
+
+    model = copy.deepcopy(w.model)
+    loss_fn = (make_refiner_loss_fn(model, w.assets, w.meshes, n_iterations=REFINER_ITERATIONS)
+               if role == "refiner" else
+               make_coarse_grid_loss_fn(model, w.assets, w.meshes, n_hypotheses=GRID_HYPOTHESES))
+    opt = make_optimizer(model.parameters(), lr=3e-4, n_warmup_steps=3, decay_steps=(3,))
+    return TrainState(model, opt), make_train_step(loss_fn)
+
+
+def _graphed_training_role(dev, role, per_step, figures, launches, traced):
+    """One loss of phase 42 (see `phase_graphed_training`)."""
+    from happypose_tpu_torch import bench
+    from happypose_tpu_torch.ops import rasterizer_fused as rf
+
+    w = _train_world(dev, role, B=TRAIN_BATCH[role])
+    batches = []
+    for i in range(GT_STEPS):
+        b = w.batch(1000 if i == GT_NAN_STEP else i)
+        if i == GT_NAN_STEP:
+            H, W = b.images.shape[2:]
+            b.images[-1, :, H // 4, W // 3] = float("nan")
+        batches.append((b, w.draws(b, i)))
+    copies = {name: _gt_copy(w, role) for name in ("graph", "eager", "eager_again")}
+    rates, gaps, diffs, wrapper, times = [], [], [], [], {k: [] for k in copies}
+    total = 0  # every wrapper launch of the phase's calls, graph and eager
+    for i, (b, d) in enumerate(batches):
+        rates.append(copies["graph"][0].optimizer.schedule(copies["graph"][0].optimizer.count))
+        metrics = {}
+        for name, (state, step) in copies.items():
+            rf.launches = 0
+            fn = step if name == "graph" else step.eager
+            metrics[name], t = _timed(lambda: fn(state, b, d))
+            times[name].append(t)
+            total += rf.launches
+            if name == "graph":
+                wrapper.append(rf.launches)
+        g, e, e2 = (_train_state_tensors(copies[k][0]) for k in copies)
+        gaps.append(max(float((x - y).abs().max()) if x.is_floating_point()
+                        else float((x != y).any()) for x, y in zip(e, e2)))
+        diffs.append(max(float((x - y).abs().max()) if x.is_floating_point()
+                         else float((x != y).any()) for x, y in zip(g, e)))
+        skipped = [metrics[k]["skipped_nonfinite"] for k in copies]
+        assert skipped == [float(i == GT_NAN_STEP)] * 3, (i, skipped)
+    counts = [(c[0].optimizer.count, c[0].step) for c in copies.values()]
+    assert counts == [(GT_STEPS - 1, GT_STEPS)] * 3, counts
+    assert wrapper == [_graph_launches(per_step - 1, 1)] + [0] * (GT_STEPS - 1), wrapper
+    bit_equal = max(gaps) == 0.0
+    for i, (gap, diff) in enumerate(zip(gaps, diffs)):
+        assert diff <= gap, f"{role} step {i}: graph vs eager {diff}, eager vs eager {gap}"
+    state, step = copies["graph"]
+    capture_s = step.graphs.capture_seconds[0]
+
+    # a replay of the synthetic batch and the step under the profiler
+    def replay():
+        b = w.batch(GT_STEPS)
+        step(state, b, w.draws(b, GT_STEPS))
+
+    rf.launches = 0
+    prof = bench.busy_share(replay)
+    total += rf.launches
+    traced[f"graphed training {role} (one step, batch and step)"] = prof["raster_kernels"]
+    assert prof["raster_kernels"] == per_step, prof
+
+    # graph and eager in turns with cuDNN's default (nondeterministic)
+    # algorithms: another key for the graph, captured by an untimed call
+    torch.backends.cudnn.deterministic = False
+    e_state, e_step = copies["eager"]
+    turns = {"graph": [], "eager": []}
+    rf.launches = 0
+    for i in range(-1, GT_TIMED):
+        b, d = batches[i % 2]
+        order = ("graph", "eager") if i % 2 == 0 else ("eager", "graph")
+        for name in order:
+            fn = ((lambda: step(state, b, d)) if name == "graph"
+                  else (lambda: e_step.eager(e_state, b, d)))
+            t = _timed(fn)[1]
+            if i >= 0:
+                turns[name].append(t)
+    total += rf.launches
+    torch.backends.cudnn.deterministic = True
+    assert len(step.graphs) == 2
+    pool = step.graphs.pool_bytes()
+    launches[f"graphed training {role} (graph and eager, {3 * GT_STEPS + 2 * GT_TIMED + 3} "
+             "steps)"] = total
+    figures[role] = {
+        "rates": rates, "graph_vs_eager_max_abs": diffs, "eager_vs_eager_max_abs": gaps,
+        "bit_equal": bit_equal, "s_per_step_deterministic": {k: v[1:] for k, v in times.items()},
+        "s_per_step": turns, "busy_share_replay": prof["busy_share"],
+        "device_kernels_replay": prof["device_kernels"], "capture_s": step.graphs.capture_seconds,
+        "pool_bytes": pool}
+    log(f"graphed training {role} ({card_line()}; ResNet34, render {RES}, images {FRAME_RES}, "
+        f"B={w.B}; cuDNN deterministic): rates a step {[f'{r:.3g}' for r in rates]}, step "
+        f"{GT_NAN_STEP + 1} skipped by a NaN pixel; graph vs eager max abs after each step "
+        f"{diffs}, eager vs eager {gaps} ({'bit for bit' if bit_equal else 'held within the gap'}); "
+        f"wrapper launches a graph step {wrapper}; s/step (steps 2-{GT_STEPS}) graph "
+        f"{_fmt(times['graph'][1:])}, eager {_fmt(times['eager'][1:])}; with cuDNN's default "
+        f"algorithms, in turns: graph {_fmt(turns['graph'])}, eager {_fmt(turns['eager'])}; a "
+        f"replay (batch and step): {prof['raster_kernels']} rasterizing kernels on the device, "
+        f"{prof['device_kernels']} kernels and copies, busy share {prof['busy_share']:.3f}; first "
+        f"call (warm-up and capture) {capture_s:.3f} s; graph pool {pool / 2**20:.1f} MiB")
+
+
+def phase_graphed_training(dev) -> dict:
+    """Phase 42: the train step as one CUDA graph replay, beside its eager
+    body (see the docstring of the module)."""
+    import gc
+
+    figures, launches, traced = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for role, per_step in (("refiner", 1 + REFINER_ITERATIONS), ("coarse", 2)):
+            _graphed_training_role(dev, role, per_step, figures, launches, traced)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"launches": launches, "traced": traced, "figures": figures}
+
+
 PHASE_SECONDS: dict = {}  # host seconds of each `phase_*` call, by function name
 T_START = time.perf_counter()
 
@@ -4150,6 +4386,9 @@ def main() -> None:
         graphs = phase_graphs(dev, kernel)
         launches.update(graphs["launches"])
         log("graphs phase 41 figures: " + json.dumps(graphs["figures"]))
+        graphed_training = phase_graphed_training(dev)
+        launches.update(graphed_training["launches"])
+        log("graphed training phase 42 figures: " + json.dumps(graphed_training["figures"]))
     log("phase seconds, largest first: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])}))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
@@ -4162,8 +4401,8 @@ def main() -> None:
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         # a CUDA graph's replay runs no Python: its launches are the
-        # rasterizing kernels of one replay's device trace (phase 41)
-        "replay_launches_traced": graphs["traced"],
+        # rasterizing kernels of one replay's device trace (phases 41, 42)
+        "replay_launches_traced": {**graphs["traced"], **graphed_training["traced"]},
         "max_abs_err": kernel["max_abs_err"],
         # at the refiner's shape (debug mesh, B = 16, 240x320); every shape under "shapes"
         "ms": kernel["ms"],

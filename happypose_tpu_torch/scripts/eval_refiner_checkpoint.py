@@ -9,7 +9,9 @@ refiner), then the pose errors before and after refinement: translation,
 rotation, ADD and the reference's `log6` magnitude. With `--split-dir` and
 `--models-dir` the frames come from a BOP split instead (held-out recorded
 frames through `PoseDataset`, no colour jitter). Writes
-`<run-dir>/refiner_eval.json`. Runs on `--device` (default `cuda`).
+`<run-dir>/refiner_eval.json`. Runs on `--device` (default `cuda`): a
+batch's initial poses and refinement are one CUDA graph a batch shape
+(JAX's jitted `refine`), with the pose noise drawn before it and handed in.
 
 Usage:
   python -m happypose_tpu_torch.scripts.eval_refiner_checkpoint \
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +31,51 @@ import torch
 from happypose_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+
+def make_refine(model, assets, meshes, n_iterations: int, init_mode: str = "noise",
+                grid_R: Optional[torch.Tensor] = None):
+    """`refine(batch, noise) -> (TCO_init, TCO_refined)` (JAX's jitted
+    `refine`) through one CUDA graph a batch shape (on CPU tensors, the
+    same path with a plain call): the initial poses, from `noise` (the
+    `sample_pose_noise` draw, `init_mode` "noise") or from the nearest
+    rotation of `grid_R` with autodepth from the projected ground-truth box
+    ("grid"; `noise` is None), then `n_iterations` of `model` (eval mode)."""
+    from happypose_tpu_torch.lib3d.pose_init import TCO_init_from_boxes_autodepth_with_R
+    from happypose_tpu_torch.lib3d.transforms import apply_pose_noise, transform_pts
+    from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
+
+    def init_poses(batch, inst, noise):
+        if init_mode == "noise":
+            return apply_pose_noise(batch.TCO_gt, *noise)
+        # nearest grid rotation (plain angle) + autodepth from the projected gt box
+        tr = torch.einsum("mji,bji->bm", grid_R, batch.TCO_gt[:, :3, :3])
+        ang = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+        R_init = grid_R[ang.argmin(dim=-1)]
+        uv = torch.einsum("bij,bpj->bpi", batch.K, transform_pts(batch.TCO_gt, inst.points))
+        uv = uv[..., :2] / torch.clamp(uv[..., 2:3], min=1e-6)
+        mask = inst.points_mask[..., None]
+        boxes = torch.cat([
+            torch.where(mask, uv, torch.full_like(uv, 1e6)).amin(dim=1),
+            torch.where(mask, uv, torch.full_like(uv, -1e6)).amax(dim=1),
+        ], dim=-1)
+        return TCO_init_from_boxes_autodepth_with_R(
+            boxes, inst.points, batch.K, R_init, inst.points_mask)
+
+    def body(batch, noise):
+        inst = meshes.select(batch.obj_ids)
+        TCO_init = init_poses(batch, inst, noise)
+        out = model.eval()(batch.images, batch.K, batch.obj_ids, TCO_init, assets, inst,
+                           n_iterations=n_iterations)
+        return TCO_init, out.TCO_output[-1]
+
+    graphs = GraphCache()
+
+    def refine(batch, noise):
+        return graphs(("refine", storage_of(model)), body, (batch, noise),
+                      captured=(model, assets, meshes, grid_R))
+
+    return refine
 
 
 def main(argv=None) -> int:
@@ -55,10 +103,9 @@ def main(argv=None) -> int:
         p.error("--split-dir needs --models-dir")
 
     from happypose_tpu_torch.lib3d.distances import compute_ADD_L1_loss
-    from happypose_tpu_torch.lib3d.pose_init import TCO_init_from_boxes_autodepth_with_R
     from happypose_tpu_torch.lib3d.rotations import geodesic_distance, log_SE3_norm
     from happypose_tpu_torch.lib3d.so3_grid import load_SO3_grid
-    from happypose_tpu_torch.lib3d.transforms import add_pose_noise, transform_pts
+    from happypose_tpu_torch.lib3d.transforms import sample_pose_noise
     from happypose_tpu_torch.models.pose_predictor import PosePredictor
     from happypose_tpu_torch.training.synth_data import (
         make_synth_batch, make_synth_mesh_db, sample_synth_scenes,
@@ -94,23 +141,7 @@ def main(argv=None) -> int:
     model.to(dev).eval()
     grid_R = torch.from_numpy(load_SO3_grid(args.so3_grid)).to(dev)
 
-    def init_poses(batch, inst, generator):
-        if args.init_mode == "noise":
-            return add_pose_noise(generator, batch.TCO_gt)
-        # nearest grid rotation (plain angle) + autodepth from the projected gt box
-        tr = torch.einsum("mji,bji->bm", grid_R, batch.TCO_gt[:, :3, :3])
-        ang = torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
-        R_init = grid_R[ang.argmin(dim=-1)]
-        uv = torch.einsum("bij,bpj->bpi", batch.K, transform_pts(batch.TCO_gt, inst.points))
-        uv = uv[..., :2] / torch.clamp(uv[..., 2:3], min=1e-6)
-        mask = inst.points_mask[..., None]
-        boxes = torch.cat([
-            torch.where(mask, uv, torch.full_like(uv, 1e6)).amin(dim=1),
-            torch.where(mask, uv, torch.full_like(uv, -1e6)).amax(dim=1),
-        ], dim=-1)
-        return TCO_init_from_boxes_autodepth_with_R(
-            boxes, inst.points, batch.K, R_init, inst.points_mask)
-
+    refine = make_refine(model, assets, bm, args.n_iterations, args.init_mode, grid_R)
     stats = {k: [] for k in ("t_before", "t_after", "r_before", "r_after", "log6_before",
                              "log6_after", "add_before", "add_after")}
     with torch.no_grad():
@@ -122,9 +153,10 @@ def main(argv=None) -> int:
                 batch = make_synth_batch(assets, K1, sample_synth_scenes(
                     g, n_objects=len(db.labels), batch_size=args.batch_size, resolution=(H, W)))
             inst = bm.select(batch.obj_ids)
-            TCO_init = init_poses(batch, inst, g)
-            TCO_ref = model(batch.images, batch.K, batch.obj_ids, TCO_init, assets, inst,
-                            n_iterations=args.n_iterations).TCO_output[-1]
+            # the draw `add_pose_noise(g, ...)` makes, before the graph
+            noise = (sample_pose_noise(g, batch.TCO_gt.shape[0]) if args.init_mode == "noise"
+                     else None)
+            TCO_init, TCO_ref = refine(batch, noise)
             gt = batch.TCO_gt
             for tag, T in (("before", TCO_init), ("after", TCO_ref)):
                 stats[f"t_{tag}"].append(torch.linalg.vector_norm(T[:, :3, 3] - gt[:, :3, 3], dim=-1))

@@ -13,7 +13,11 @@ the JAX package from its `checkpoint.msgpack`) and an optional mAP@0.5 on
 a few frames. A batch is a frame cropped to the aspect of `--image-size`, its
 boxes moved with the crop, and box-filling masks at a quarter of the
 resolution; the colours are jittered unless `--no-augment`. The split's
-uint8 frames are staged on `--device` (default `cuda`) once.
+uint8 frames are staged on `--device` (default `cuda`) once. On the card
+the step is one CUDA graph replay (`training/trainer.py`), the batch copied
+into its inputs, and the evaluation's forward another (the detector's
+forward graph of `inference/detector.py`); the postprocess, whose NMS
+reads to the host, runs after it.
 
 Usage:
   python -m happypose_tpu_torch.scripts.run_detector_training \
@@ -27,14 +31,27 @@ import argparse
 import json
 import time
 from pathlib import Path
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
 from happypose_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# The evaluation's forward graphs, one cache a model (JAX's jitted
+# `eval_forward`), keyed as `inference.detector.Detector._forward`'s
+_eval_graphs: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = \
+    weakref.WeakKeyDictionary()
+
+
+def eval_forward(model, x: torch.Tensor):
+    """`model(x)` in eval mode through its graph of `x`'s shape."""
+    graphs = _eval_graphs.setdefault(model, GraphCache())
+    return graphs(("forward", model.training, storage_of(model)), model, (x,))
 
 MAX_CACHED_FRAMES = 4400  # split size up to which frames are staged on the device
 
@@ -122,8 +139,8 @@ def eval_map(model, maker: BatchMaker, n_frames: int) -> float:
     with torch.no_grad():
         for _ in range(max(1, n_frames // maker.batch_size)):
             x, targets = maker.make(rng)
-            post = detector_postprocess(model(x), score_threshold=0.3, iou_threshold=0.5,
-                                        max_detections=maker.max_gt * 2)
+            post = detector_postprocess(eval_forward(model, x), score_threshold=0.3,
+                                        iou_threshold=0.5, max_detections=maker.max_gt * 2)
             post = {k: v.cpu().numpy() for k, v in post.items()}
             t = targets.to("cpu")
             for i in range(x.shape[0]):

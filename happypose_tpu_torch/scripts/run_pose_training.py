@@ -9,6 +9,11 @@ that are run directories of the port (`utils/checkpoint.py`), resume
 and warm start (`--resume`, `--init-from`: from the port's run directories
 or the JAX package's `checkpoint.msgpack`, its Adam state included), the refiner's iteration curriculum and in-training evaluation.
 
+On the card the step is one CUDA graph replay (`training/trainer.py`;
+each curriculum change builds a step, and so a key, of its own), the
+synthetic batch another (`training/synth_data.py`), and the in-training
+evaluation a third; the loop reads the step's metrics once a step.
+
 Data: `--data synth` renders random scenes through the rasterizer on
 `--device` (default `cuda`; the hand-written kernel there, its plain
 version on the CPU). `--data <dir>` trains on a BOP split with the models
@@ -182,6 +187,7 @@ def train(args, dev, db, pose_ds, mesh=None) -> int:
     from happypose_tpu_torch.utils.checkpoint import (
         has_checkpoint, load_checkpoint, save_checkpoint,
     )
+    from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
     from happypose_tpu_torch.utils.load_model import read_state_dict
     from happypose_tpu_torch.utils.profiling import device_trace
     from happypose_tpu_torch.utils.random import generator_for
@@ -257,26 +263,28 @@ def train(args, dev, db, pose_ds, mesh=None) -> int:
     loss_fn = build_loss(cur_iters)
     step_fn = make_train_step(loss_fn, mesh=mesh)
 
-    # in-training eval: refine noised ground truth on a fixed held-out batch
+    # in-training eval: refine noised ground truth on a fixed held-out batch,
+    # through its graph (JAX's jitted `eval_fn`); the noise is drawn once
     eval_fn = None
     if args.eval_every and args.model_type == "refiner":
         eval_batch = synth_batch(999983, 0)
         eval_noise = shard(sample_pose_noise(
             generator_for("eval", 424242, device=dev), args.batch_size))
+        eval_graphs = GraphCache()
 
-        @torch.no_grad()
+        def eval_errors(batch, noise):
+            TCO_init = apply_pose_noise(batch.TCO_gt, *noise)
+            out = model.eval()(batch.images, batch.K, batch.obj_ids, TCO_init, assets,
+                               bm.select(batch.obj_ids), n_iterations=2)
+            T, gt = out.TCO_output[-1], batch.TCO_gt
+            return torch.stack([
+                torch.linalg.vector_norm(T[:, :3, 3] - gt[:, :3, 3], dim=-1).mean(),
+                geodesic_distance(T[:, :3, :3], gt[:, :3, :3]).mean() * (180.0 / np.pi)])
+
         def eval_fn():
-            TCO_init = apply_pose_noise(eval_batch.TCO_gt, *eval_noise)
-            out = model.eval()(
-                eval_batch.images, eval_batch.K, eval_batch.obj_ids, TCO_init, assets,
-                bm.select(eval_batch.obj_ids), n_iterations=2)
-            T, gt = out.TCO_output[-1], eval_batch.TCO_gt
-            return {
-                "eval_trans_err": float(
-                    torch.linalg.vector_norm(T[:, :3, 3] - gt[:, :3, 3], dim=-1).mean()),
-                "eval_rot_err_deg": float(
-                    geodesic_distance(T[:, :3, :3], gt[:, :3, :3]).mean()) * 180.0 / np.pi,
-            }
+            trans, rot = eval_graphs(("eval", storage_of(model)), eval_errors,
+                                     (eval_batch, eval_noise), captured=(model, assets, bm)).tolist()
+            return {"eval_trans_err": trans, "eval_rot_err_deg": rot}
 
     main_process = is_main_process()
     if main_process:

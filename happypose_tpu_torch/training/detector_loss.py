@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from happypose_tpu_torch.models.detector import DetectorOutputs, decode_boxes
+from happypose_tpu_torch.utils.cuda_graphs import device_constant
 
 # FCOS per-level regression ranges (pixels)
 LEVEL_RANGES = ((0, 64), (64, 128), (128, 256), (256, 512), (512, 1e8))
@@ -52,7 +53,7 @@ def assign_targets(
     ltrb = _ltrb(locations[None, :, None, :], gt_boxes[:, None, :, :])  # [B, L, G, 4]
     inside = ltrb.amin(-1) > 0
     max_d = ltrb.amax(-1)
-    ranges = torch.tensor(LEVEL_RANGES, dtype=torch.float32, device=locations.device)[level_ids]
+    ranges = device_constant(LEVEL_RANGES, torch.float32, locations.device)[level_ids]
     in_range = (max_d >= ranges[None, :, None, 0]) & (max_d <= ranges[None, :, None, 1])
     area = (gt_boxes[..., 2] - gt_boxes[..., 0]) * (gt_boxes[..., 3] - gt_boxes[..., 1])
     cand = inside & in_range & gt_valid[:, None, :]
@@ -114,7 +115,9 @@ def detector_loss(
     # classification: focal over every location; the background class
     # n_classes is the all-zero row
     tgt_cls = torch.where(pos, _take(targets.labels, idx), torch.full_like(idx, n_classes))
-    onehot = F.one_hot(tgt_cls.to(torch.int64), n_classes + 1)[..., :n_classes].to(out.cls_logits.dtype)
+    # one_hot(., n_classes + 1)[..., :n_classes], without one_hot's host check of the ids
+    onehot = (tgt_cls[..., None] == torch.arange(n_classes, device=tgt_cls.device)).to(
+        out.cls_logits.dtype)
     cls_l = focal_loss(out.cls_logits, onehot).sum((1, 2)) / n_pos
 
     # box GIoU on positives

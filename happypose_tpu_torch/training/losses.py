@@ -18,15 +18,14 @@ from happypose_tpu_torch.lib3d.distances import loss_CO_symmetric
 from happypose_tpu_torch.lib3d.pose_update import pose_update_with_reference_point
 from happypose_tpu_torch.lib3d.rotations import quat_to_rotmat, rotmat_from_ortho6d
 from happypose_tpu_torch.lib3d.transforms import make_T
+from happypose_tpu_torch.utils.cuda_graphs import device_constant
 
 
 def _block(rows: Sequence[int], cols: Sequence[int], device) -> torch.Tensor:
-    """[4, 4] bool mask of the (rows, cols) block."""
-    r = torch.zeros(4, dtype=torch.bool, device=device)
-    c = torch.zeros(4, dtype=torch.bool, device=device)
-    r[list(rows)] = True
-    c[list(cols)] = True
-    return r[:, None] & c[None, :]
+    """[4, 4] bool mask of the (rows, cols) block, a kept device constant
+    (no copy from the host inside a train step's capture)."""
+    mask = tuple(tuple(i in rows and j in cols for j in range(4)) for i in range(4))
+    return device_constant(mask, torch.bool, device)
 
 
 def _symmetric_parts(TCO_possible_gt, preds, points, points_mask):

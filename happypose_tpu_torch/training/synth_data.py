@@ -6,7 +6,11 @@ over a smooth random background, with pixel noise.
 
 `sample_synth_scenes` makes the draws with a `torch.Generator` on its
 device; `make_synth_batch` is deterministic in them, so a test can hand it
-the draws JAX made.
+the draws JAX made. It runs as one CUDA graph a key (JAX's jit of
+`make_synth_batch`, static in the batch size and the resolution): the
+shapes of the assets, the intrinsics and the draws, whose values are
+copied into the graph's inputs, so that every mesh database of one shape
+replays one graph. `make_synth_batch_eager` is its plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from happypose_tpu_torch.meshes.io import (
 )
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.training.forward_loss import PoseTrainingBatch
+from happypose_tpu_torch.utils.cuda_graphs import GraphCache
 
 
 def make_synth_mesh_db(
@@ -113,7 +118,22 @@ def sample_synth_scenes(
     }
 
 
+# The synthetic batch's graphs, one a key (a training cache: the batch's
+# tensors are ordinary tensors, which a train step's autograd may read).
+synth_batch_graphs = GraphCache(training=True)
+
+
 def make_synth_batch(
+    assets: RenderAssets,
+    K1: torch.Tensor,  # [3, 3] shared intrinsics
+    draws: Dict[str, torch.Tensor],
+) -> PoseTrainingBatch:
+    """`make_synth_batch_eager` through its graph (on CPU tensors, the same
+    path with a plain call)."""
+    return synth_batch_graphs("synth_batch", make_synth_batch_eager, (assets, K1, draws))
+
+
+def make_synth_batch_eager(
     assets: RenderAssets,
     K1: torch.Tensor,  # [3, 3] shared intrinsics
     draws: Dict[str, torch.Tensor],

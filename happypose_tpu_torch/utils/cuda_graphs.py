@@ -2,7 +2,8 @@
 JAX package's jit caches (`inference/pose_estimator.py`: the stage programs
 `_coarse_logits_fn` / `_refine_fn`, `forward_coarse_jit`,
 `run_inference_pipeline_jit`; `inference/detector.py`: the detector's
-forward).
+forward; `training/trainer.py`: the train step; `training/synth_data.py`:
+the synthetic batch; the training scripts' eval forwards).
 
 JAX traces one program per shape key and dispatches it once per call. Here
 a `GraphCache` maps a key to a captured callable:
@@ -22,8 +23,8 @@ a `GraphCache` maps a key to a captured callable:
   blocks instead of holding one copy each.
 
 The key is the caller's (JAX's key) plus what a graph bakes in and a jit
-does not: PyTorch's two TF32 flags, the shapes, dtypes and devices of the
-inputs, and the identity of the captured objects (models, render assets)
+does not: PyTorch's two TF32 flags and cuDNN's `deterministic` and
+`benchmark` choices, the shapes, dtypes and devices of the inputs, and the identity of the captured objects (models, render assets)
 with the storage of every parameter and buffer of the models. Weights
 reloaded in place (`load_state_dict`, an optimizer step) are read by the
 next replay, as JAX's weights-as-arguments are; parameters replaced by new
@@ -36,6 +37,17 @@ out), as `ops.rasterizer_fused.raster_fused` sends a CPU tensor to its
 plain version. Called while a capture is in progress, it calls the
 function plainly, so that one graph's function may call another's: the
 outer capture records the inner work.
+
+A training cache (`GraphCache(training=True)`: the train step's, and the
+synthetic batch's, whose outputs autograd reads) runs outside inference
+mode, so that autograd records: the gradients that a train step
+allocates inside the capture (`zero_grad(set_to_none=True)`, forward,
+backward, the optimizer's update, all inside `torch.cuda.graph`) come
+from the cache's pool, as in PyTorch's whole-network capture. A call
+there runs the function once: the first call of a key is the warm-up,
+whose results it returns, then the capture, which records the work
+without running it, and no replay; every later call is one replay. So a
+train step's call is one update.
 
 The kernel's launch count (`ops.rasterizer_fused.launches`) is kept by its
 wrapper alone: it counts the warm-up's launches and the capture's (each
@@ -116,6 +128,12 @@ def _precision_flags() -> Tuple[bool, bool]:
     return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
 
 
+def _algorithm_flags() -> Tuple[bool, bool]:
+    """cuDNN's `deterministic` and `benchmark` choices, which pick the
+    algorithms a capture bakes in."""
+    return torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+
+
 def storage_of(*modules: torch.nn.Module) -> Tuple[int, ...]:
     """The addresses of the modules' parameters and buffers, which a
     capture reads."""
@@ -134,24 +152,28 @@ class _Entry:
     keep: tuple  # the captured objects, kept alive while the entry lives
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: object = None  # the graph's static outputs
-    capture_s: float = 0.0  # warm-up + capture + first replay, seconds
+    capture_s: float = 0.0  # warm-up + capture (+ first replay), seconds
 
 
 class GraphCache:
     """One captured callable per key (see the module docstring). Not
-    thread-safe: captures and replays are serial."""
+    thread-safe: captures and replays are serial. `training`: outside
+    inference mode, and a call is one run of the function (see the module
+    docstring)."""
 
-    def __init__(self):
+    def __init__(self, training: bool = False):
         self._entries: Dict[tuple, _Entry] = {}
         self._pool = None
+        self.training = training
 
     def __len__(self) -> int:
         return len(self._entries)
 
     @property
     def capture_seconds(self) -> List[float]:
-        """Seconds of each captured key's first call (warm-up, capture and
-        first replay), in the order of capture; 0 for CPU entries."""
+        """Seconds of each captured key's first call (warm-up, capture and,
+        outside training, the first replay), in the order of capture; 0 for
+        CPU entries."""
         return [e.capture_s for e in self._entries.values()]
 
     def pool_bytes(self) -> int:
@@ -173,8 +195,9 @@ class GraphCache:
             raise ValueError(f"graphed calls run on CUDA or CPU tensors, not {device}")
         if _is_capturing(device):
             return fn(*args)
-        full_key = (key, tuple(id(o) for o in captured), _precision_flags(), _spec(args))
-        with torch.inference_mode():
+        full_key = (key, tuple(id(o) for o in captured), _precision_flags(), _algorithm_flags(),
+                    _spec(args))
+        with torch.no_grad() if self.training else torch.inference_mode():
             entry = self._entries.get(full_key)
             if entry is None:
                 inputs = [torch.empty_like(t) for t in leaves]
@@ -182,33 +205,40 @@ class GraphCache:
                 entry = _Entry(inputs, _map(args, lambda _: next(it)), tuple(captured))
             for buf, t in zip(entry.inputs, leaves):
                 buf.copy_(t)
+        with torch.enable_grad() if self.training else torch.inference_mode():
             if device.type == "cpu":
                 self._entries.setdefault(full_key, entry)
                 return _clone_out(fn(*entry.args))
             if entry.graph is None:
                 with torch.cuda.device(device):
-                    self._capture(entry, fn)
+                    first = self._capture(entry, fn)
                 self._entries[full_key] = entry
-            else:
-                entry.graph.replay()
+                return _clone_out(first)
+            entry.graph.replay()
             return _clone_out(entry.outputs)
 
-    def _capture(self, entry: _Entry, fn: Callable) -> None:
+    def _capture(self, entry: _Entry, fn: Callable):
+        """Warm `fn` up on a side stream, capture it, and return the outputs
+        of this call: the first replay's, or in training the warm-up's (the
+        capture records the work without running it, so the call runs the
+        function once)."""
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn(*entry.args)  # the warm-up
+            warm = fn(*entry.args)
         torch.cuda.current_stream().wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
             outputs = fn(*entry.args)
-        graph.replay()
+        if not self.training:
+            graph.replay()
         torch.cuda.synchronize()
         entry.graph, entry.outputs = graph, outputs
         entry.capture_s = time.perf_counter() - t0
+        return warm if self.training else outputs
 
 
 _constants: Dict[tuple, torch.Tensor] = {}
