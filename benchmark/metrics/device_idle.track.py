@@ -1,0 +1,14 @@
+"""device_idle.track (%): the share of the traced stretch in which no kernel
+or copy ran on the card (the union of the device's intervals, not a sum of
+kernel times)."""
+
+from benchmark import readers
+
+SOURCE = "device_trace"
+LAYER = "device: one H100"
+MOVES = "poses_per_s.track"
+WORKLOADS = ["megapose-track"]
+
+
+def read(run):
+    return readers.device_idle(run)
