@@ -173,7 +173,9 @@ def _ms(fn: Callable[[], object], device, n_runs: int) -> float:
 
 def busy_share(fn: Callable[[], object]) -> Dict[str, float]:
     """One call of `fn` under `torch.profiler` (device activity only): the
-    device's kernels and copies, their time, the call's wall time and the
+    device's kernels and copies, the seconds in which at least one of them
+    ran (the union of their intervals, so that kernels that overlap count
+    once and the share stays at most 1), the call's wall time and the
     rasterizing kernels among them (`raster_kernels`: one a launch, counted
     on the device, so a CUDA graph's replays count too)."""
     from torch.autograd import DeviceType
@@ -185,11 +187,21 @@ def busy_share(fn: Callable[[], object]) -> Dict[str, float]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in device) / 1e6
-    return {"device_kernels": sum(e.count for e in device),
-            "raster_kernels": sum(e.count for e in device if rf.KERNEL_NAME in e.key),
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _union_s([(e.time_range.start, e.time_range.end) for e in device]) * 1e-6
+    return {"device_kernels": len(device),
+            "raster_kernels": sum(rf.KERNEL_NAME in e.name for e in device),
             "busy_s": busy, "wall_s": wall, "busy_share": busy / wall}
+
+
+def _union_s(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
 
 
 # ---------------------------------------------------------------- entry()

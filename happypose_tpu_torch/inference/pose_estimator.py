@@ -54,6 +54,7 @@ from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.ops.segment_ops import group_keys, topk_per_group
 from happypose_tpu_torch.parallel.collectives import sharded_batch_apply
 from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
+from happypose_tpu_torch.utils.profiling import annotate, stage
 
 
 def _model_images(model: PosePredictor, obs: ObservationBatch) -> torch.Tensor:
@@ -68,7 +69,7 @@ _stage_graphs: "weakref.WeakKeyDictionary[PosePredictor, GraphCache]" = weakref.
 
 
 def _stage_call(model: PosePredictor, key, fn, args, assets):
-    graphs = _stage_graphs.setdefault(model, GraphCache())
+    graphs = _stage_graphs.setdefault(model, GraphCache("stage"))
     key = (key, model.cfg, model.training, storage_of(model))
     return graphs(key, fn, args, captured=(assets,))
 
@@ -135,7 +136,7 @@ class PoseEstimator:
             assets.vertices.device
         )
         self._depth_refiners: Dict[tuple, object] = {}
-        self._pipeline_jit_cache = GraphCache()
+        self._pipeline_jit_cache = GraphCache("pipeline")
 
     # ------------------------------------------------------------------
     # MegaPose coarse: score detections x SO(3)-grid hypotheses
@@ -147,36 +148,37 @@ class PoseEstimator:
     ) -> PoseEstimateBatch:
         """Replicate each detection over the SO(3) grid, init TCO with
         autodepth, score every hypothesis with the coarse classifier."""
-        D = detections.n_rows
-        M = self.SO3_grid.shape[0]  # the loaded grid's size
-        dev = self.SO3_grid.device
-        det_idx = torch.arange(D, device=dev).repeat_interleave(M)
-        hyp_ids = torch.arange(M, device=dev).repeat(D)
-        boxes = detections.boxes[det_idx]
-        obj_ids = detections.obj_ids[det_idx]
-        im_ids = detections.batch_im_ids[det_idx]
-        valid = detections.valid[det_idx]
-        R = self.SO3_grid.repeat(D, 1, 1)
-        K = obs.K[im_ids]
+        with stage("estimator.coarse"):
+            D = detections.n_rows
+            M = self.SO3_grid.shape[0]  # the loaded grid's size
+            dev = self.SO3_grid.device
+            det_idx = torch.arange(D, device=dev).repeat_interleave(M)
+            hyp_ids = torch.arange(M, device=dev).repeat(D)
+            boxes = detections.boxes[det_idx]
+            obj_ids = detections.obj_ids[det_idx]
+            im_ids = detections.batch_im_ids[det_idx]
+            valid = detections.valid[det_idx]
+            R = self.SO3_grid.repeat(D, 1, 1)
+            K = obs.K[im_ids]
 
-        inst = self.meshes.select(obj_ids)
-        TCO_init = TCO_init_from_boxes_autodepth_with_R(
-            boxes, inst.points, K, R, inst.points_mask
-        )
-        logits = self._score_hypotheses(obs, K, obj_ids, im_ids, TCO_init)
-        logits = torch.where(valid, logits, torch.full_like(logits, -torch.inf))
-        return PoseEstimateBatch(
-            poses=TCO_init,
-            K=K,
-            obj_ids=obj_ids,
-            batch_im_ids=im_ids,
-            instance_ids=detections.instance_ids[det_idx],
-            hypothesis_ids=hyp_ids,
-            scores=detections.scores[det_idx],
-            coarse_logits=logits,
-            pose_logits=torch.zeros_like(logits),
-            valid=valid,
-        )
+            inst = self.meshes.select(obj_ids)
+            TCO_init = TCO_init_from_boxes_autodepth_with_R(
+                boxes, inst.points, K, R, inst.points_mask
+            )
+            logits = self._score_hypotheses(obs, K, obj_ids, im_ids, TCO_init)
+            logits = torch.where(valid, logits, torch.full_like(logits, -torch.inf))
+            return PoseEstimateBatch(
+                poses=TCO_init,
+                K=K,
+                obj_ids=obj_ids,
+                batch_im_ids=im_ids,
+                instance_ids=detections.instance_ids[det_idx],
+                hypothesis_ids=hyp_ids,
+                scores=detections.scores[det_idx],
+                coarse_logits=logits,
+                pose_logits=torch.zeros_like(logits),
+                valid=valid,
+            )
 
     def forward_coarse_jit(
         self, obs: ObservationBatch, detections: DetectionBatch
@@ -191,10 +193,11 @@ class PoseEstimator:
         """`fn(*args)` through `_pipeline_jit_cache`: JAX's key plus the
         configuration, the models' mode and storage, and the captured
         objects' identity."""
-        models = [m for m in (self.refiner_model, self.coarse_model) if m is not None]
-        key = (key, self.cfg, tuple((m.cfg, m.training) for m in models), storage_of(*models))
-        captured = (*models, self.assets, self.meshes, self.SO3_grid)
-        return self._pipeline_jit_cache(key, fn, args, captured=captured)
+        with annotate("estimator.frame"):
+            models = [m for m in (self.refiner_model, self.coarse_model) if m is not None]
+            key = (key, self.cfg, tuple((m.cfg, m.training) for m in models), storage_of(*models))
+            captured = (*models, self.assets, self.meshes, self.SO3_grid)
+            return self._pipeline_jit_cache(key, fn, args, captured=captured)
 
     def _score_hypotheses(self, obs, K, obj_ids, im_ids, TCO) -> torch.Tensor:
         """Coarse-classifier logits [N] of N hypotheses, `bsz_images` at a
@@ -234,10 +237,11 @@ class PoseEstimator:
     ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
         """Refine all estimates, `bsz_objects` at a time. Returns (final,
         {"iteration=k": estimates after k iterations})."""
-        return self._update_poses(
-            self.refiner_model, obs, estimates,
-            n_iterations or self.cfg.n_refiner_iterations,
-        )
+        with stage("estimator.refine"):
+            return self._update_poses(
+                self.refiner_model, obs, estimates,
+                n_iterations or self.cfg.n_refiner_iterations,
+            )
 
     def _update_poses(
         self, model: PosePredictor, obs: ObservationBatch,
@@ -271,12 +275,13 @@ class PoseEstimator:
     def forward_scoring(
         self, obs: ObservationBatch, estimates: PoseEstimateBatch
     ) -> PoseEstimateBatch:
-        logits = self._score_hypotheses(
-            obs, estimates.K, estimates.obj_ids, estimates.batch_im_ids,
-            estimates.poses,
-        )
-        logits = torch.where(estimates.valid, logits, torch.full_like(logits, -torch.inf))
-        return dataclasses.replace(estimates, pose_logits=logits)
+        with stage("estimator.score"):
+            logits = self._score_hypotheses(
+                obs, estimates.K, estimates.obj_ids, estimates.batch_im_ids,
+                estimates.poses,
+            )
+            logits = torch.where(estimates.valid, logits, torch.full_like(logits, -torch.inf))
+            return dataclasses.replace(estimates, pose_logits=logits)
 
     # ------------------------------------------------------------------
     # Selection
@@ -322,9 +327,10 @@ class PoseEstimator:
         self, obs: ObservationBatch, estimates: PoseEstimateBatch
     ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
         """CosyPose coarse: the coarse pose model run `n_coarse_iterations`."""
-        return self._update_poses(
-            self.coarse_model, obs, estimates, self.cfg.n_coarse_iterations
-        )
+        with stage("estimator.coarse"):
+            return self._update_poses(
+                self.coarse_model, obs, estimates, self.cfg.n_coarse_iterations
+            )
 
     # ------------------------------------------------------------------
     # Full pipeline
@@ -426,22 +432,23 @@ class PoseEstimator:
         cost. `cfg.depth_refiner` selects "teaserpp" (GNC-TLS registration)
         or ICP (the default). Both render through `render_batch_fused`: the
         CUDA kernel for CUDA tensors. Only valid rows move."""
-        H, W = obs.rgb.shape[-2:]
-        scale = max(1, max(H, W) // 160)
-        h, w = H // scale, W // scale
-        depth = obs.depth[:, 0, ::scale, ::scale]
-        K_scaled = torch.cat([obs.K[:, :2] / float(scale), obs.K[:, 2:]], dim=1)
-        refiner_cls = TeaserRefiner if self.cfg.depth_refiner == "teaserpp" else ICPRefiner
-        key = (refiner_cls, (h, w))
-        refiner = self._depth_refiners.get(key)
-        if refiner is None:
-            refiner = refiner_cls(self.assets, render_batch_fused, resolution=(h, w))
-            self._depth_refiners[key] = refiner
-        poses = refiner.refine(
-            estimates.obj_ids,
-            estimates.poses,
-            K_scaled[estimates.batch_im_ids],
-            depth[estimates.batch_im_ids],
-        )
-        poses = torch.where(estimates.valid[:, None, None], poses, estimates.poses)
-        return dataclasses.replace(estimates, poses=poses)
+        with annotate("estimator.depth_refine"):
+            H, W = obs.rgb.shape[-2:]
+            scale = max(1, max(H, W) // 160)
+            h, w = H // scale, W // scale
+            depth = obs.depth[:, 0, ::scale, ::scale]
+            K_scaled = torch.cat([obs.K[:, :2] / float(scale), obs.K[:, 2:]], dim=1)
+            refiner_cls = TeaserRefiner if self.cfg.depth_refiner == "teaserpp" else ICPRefiner
+            key = (refiner_cls, (h, w))
+            refiner = self._depth_refiners.get(key)
+            if refiner is None:
+                refiner = refiner_cls(self.assets, render_batch_fused, resolution=(h, w))
+                self._depth_refiners[key] = refiner
+            poses = refiner.refine(
+                estimates.obj_ids,
+                estimates.poses,
+                K_scaled[estimates.batch_im_ids],
+                depth[estimates.batch_im_ids],
+            )
+            poses = torch.where(estimates.valid[:, None, None], poses, estimates.poses)
+            return dataclasses.replace(estimates, poses=poses)

@@ -10,6 +10,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from happypose_tpu_torch.utils.profiling import annotate
+
 
 @dataclass
 class ObservationBatch:
@@ -37,22 +39,23 @@ class ObservationBatch:
         device="cuda",
     ) -> "ObservationBatch":
         """rgb uint8 or float [H, W, 3] or [B, H, W, 3] -> ObservationBatch."""
-        if rgb.ndim == 3:
-            rgb = rgb[None]
-        if rgb.dtype == np.uint8:
-            rgb = rgb.astype(np.float32) / 255.0
-        if K.ndim == 2:
-            K = K[None]
-        d = None
-        if depth is not None:
-            if depth.ndim == 2:
-                depth = depth[None]
-            d = torch.from_numpy(depth[:, None].astype(np.float32)).to(device)
-        return ObservationBatch(
-            rgb=torch.from_numpy(np.moveaxis(rgb, -1, 1).astype(np.float32)).to(device),
-            K=torch.from_numpy(K.astype(np.float32)).to(device),
-            depth=d,
-        )
+        with annotate("obs.upload"):
+            if rgb.ndim == 3:
+                rgb = rgb[None]
+            if rgb.dtype == np.uint8:
+                rgb = rgb.astype(np.float32) / 255.0
+            if K.ndim == 2:
+                K = K[None]
+            d = None
+            if depth is not None:
+                if depth.ndim == 2:
+                    depth = depth[None]
+                d = torch.from_numpy(depth[:, None].astype(np.float32)).to(device)
+            return ObservationBatch(
+                rgb=torch.from_numpy(np.moveaxis(rgb, -1, 1).astype(np.float32)).to(device),
+                K=torch.from_numpy(K.astype(np.float32)).to(device),
+                depth=d,
+            )
 
 
 @dataclass
@@ -95,29 +98,30 @@ class DetectionBatch:
         scores: Optional[np.ndarray] = None,
         device="cuda",
     ) -> "DetectionBatch":
-        n = len(boxes)
-        if batch_im_ids is None:
-            batch_im_ids = np.zeros((n,), np.int64)
-        if scores is None:
-            scores = np.ones((n,), np.float32)
-        inst = np.zeros((n,), np.int64)
-        seen = {}
-        for i in range(n):
-            key = (int(batch_im_ids[i]), int(obj_ids[i]))
-            inst[i] = seen.get(key, 0)
-            seen[key] = inst[i] + 1
+        with annotate("obs.upload"):
+            n = len(boxes)
+            if batch_im_ids is None:
+                batch_im_ids = np.zeros((n,), np.int64)
+            if scores is None:
+                scores = np.ones((n,), np.float32)
+            inst = np.zeros((n,), np.int64)
+            seen = {}
+            for i in range(n):
+                key = (int(batch_im_ids[i]), int(obj_ids[i]))
+                inst[i] = seen.get(key, 0)
+                seen[key] = inst[i] + 1
 
-        def t(x, dtype):
-            return torch.from_numpy(np.asarray(x).astype(dtype)).to(device)
+            def t(x, dtype):
+                return torch.from_numpy(np.asarray(x).astype(dtype)).to(device)
 
-        return DetectionBatch(
-            boxes=t(boxes, np.float32),
-            obj_ids=t(obj_ids, np.int64),
-            batch_im_ids=t(batch_im_ids, np.int64),
-            instance_ids=t(inst, np.int64),
-            scores=t(scores, np.float32),
-            valid=torch.ones((n,), dtype=torch.bool, device=device),
-        )
+            return DetectionBatch(
+                boxes=t(boxes, np.float32),
+                obj_ids=t(obj_ids, np.int64),
+                batch_im_ids=t(batch_im_ids, np.int64),
+                instance_ids=t(inst, np.int64),
+                scores=t(scores, np.float32),
+                valid=torch.ones((n,), dtype=torch.bool, device=device),
+            )
 
 
 @dataclass

@@ -23,6 +23,10 @@ gets no `torch.autograd.Function` and runs forward only. With
 in bfloat16 (`torch.autocast`); the parameters, the BatchNorm statistics
 and the heads stay in float32, as Flax promotes the features to the heads'
 float32.
+
+An iteration runs under the spans `predictor.crop`, `predictor.render`
+(the views' cameras, the render and its normalization), `predictor.net`
+(backbone and heads) and `predictor.update` (the SE(3) update).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from happypose_tpu_torch.models.backbones import (
 )
 from happypose_tpu_torch.ops.crop_resize import crop_images_matmul
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
+from happypose_tpu_torch.utils.profiling import annotate
 
 # head outputs of the identity update: ortho6d (x, y columns) + vxvyvz, and
 # quaternion (xyzw) + vxvyvz, with vz = 1 (no depth change)
@@ -259,45 +264,49 @@ class PosePredictor(nn.Module):
     def _iteration(self, images, K, obj_ids, TCO_input, assets, meshes):
         cfg = self.cfg
         B = TCO_input.shape[0]
-        TCO_input = normalize_T(TCO_input).detach()
-        tCR = TCO_input[:, :3, 3]
-        images_crop, K_crop, boxes_rend, boxes_crop = self._crop_inputs(
-            images, K, TCO_input, tCR, meshes.points, meshes.points_mask
-        )
-        TCV_O = make_TCO_multiview(
-            TCO_input, tCR,
-            multiview_type=cfg.multiview_type,
-            remove_TCO_rendering=cfg.remove_TCO_rendering,
-            views_inplane_rotations=cfg.views_inplane_rotations,
-        )
-        KV_crop = self._compute_KV_crop(
-            images.shape[-2:], K, TCV_O, meshes.points, meshes.points_mask
-        )
-        if not cfg.remove_TCO_rendering:
-            KV_crop = torch.cat([K_crop[:, None], KV_crop[:, 1:]], dim=1)
-        with torch.no_grad():
-            renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
-        images_crop, renders = self._normalize_images(images_crop, renders, tCR)
-
-        feats = self._features(torch.cat([images_crop, renders], dim=1))
-        if cfg.predict_pose_update:
-            pose_raw = self.pose_fc(feats)
-            if cfg.pose_head == "quaternion":
-                dR = quat_to_rotmat(pose_raw[:, 0:4])
-                vxvyvz = pose_raw[:, 4:7]
-            else:
-                dR = rotmat_from_ortho6d(pose_raw[:, 0:6])
-                vxvyvz = pose_raw[:, 6:9]
-            TCO_output = pose_update_with_reference_point(
-                TCO_input, K_crop, vxvyvz, dR, tCR
+        with annotate("predictor.crop"):
+            TCO_input = normalize_T(TCO_input).detach()
+            tCR = TCO_input[:, :3, 3]
+            images_crop, K_crop, boxes_rend, boxes_crop = self._crop_inputs(
+                images, K, TCO_input, tCR, meshes.points, meshes.points_mask
             )
-        else:
-            pose_raw = TCO_input.new_zeros(B, 9)
-            TCO_output = TCO_input
-        if cfg.predict_rendered_views_logits:
-            logits = self.views_logits_head(feats)
-        else:
-            logits = TCO_input.new_zeros(B, cfg.n_views)
+        with annotate("predictor.render"):
+            TCV_O = make_TCO_multiview(
+                TCO_input, tCR,
+                multiview_type=cfg.multiview_type,
+                remove_TCO_rendering=cfg.remove_TCO_rendering,
+                views_inplane_rotations=cfg.views_inplane_rotations,
+            )
+            KV_crop = self._compute_KV_crop(
+                images.shape[-2:], K, TCV_O, meshes.points, meshes.points_mask
+            )
+            if not cfg.remove_TCO_rendering:
+                KV_crop = torch.cat([K_crop[:, None], KV_crop[:, 1:]], dim=1)
+            with torch.no_grad():
+                renders = self._render_views(assets, obj_ids, TCV_O, KV_crop)
+            images_crop, renders = self._normalize_images(images_crop, renders, tCR)
+
+        with annotate("predictor.net"):
+            feats = self._features(torch.cat([images_crop, renders], dim=1))
+            pose_raw = self.pose_fc(feats) if cfg.predict_pose_update else None
+            if cfg.predict_rendered_views_logits:
+                logits = self.views_logits_head(feats)
+            else:
+                logits = TCO_input.new_zeros(B, cfg.n_views)
+        with annotate("predictor.update"):
+            if cfg.predict_pose_update:
+                if cfg.pose_head == "quaternion":
+                    dR = quat_to_rotmat(pose_raw[:, 0:4])
+                    vxvyvz = pose_raw[:, 4:7]
+                else:
+                    dR = rotmat_from_ortho6d(pose_raw[:, 0:6])
+                    vxvyvz = pose_raw[:, 6:9]
+                TCO_output = pose_update_with_reference_point(
+                    TCO_input, K_crop, vxvyvz, dR, tCR
+                )
+            else:
+                pose_raw = TCO_input.new_zeros(B, 9)
+                TCO_output = TCO_input
         return PoseOutputs(
             TCO_input=TCO_input, TCO_output=TCO_output, K_crop=K_crop,
             boxes_rend=boxes_rend, boxes_crop=boxes_crop, tCR=tCR,

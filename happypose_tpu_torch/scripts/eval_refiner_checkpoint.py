@@ -69,7 +69,7 @@ def make_refine(model, assets, meshes, n_iterations: int, init_mode: str = "nois
                            n_iterations=n_iterations)
         return TCO_init, out.TCO_output[-1]
 
-    graphs = GraphCache()
+    graphs = GraphCache("eval")
 
     def refine(batch, noise):
         return graphs(("refine", storage_of(model)), body, (batch, noise),

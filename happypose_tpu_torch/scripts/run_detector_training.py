@@ -50,7 +50,7 @@ _eval_graphs: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = \
 
 def eval_forward(model, x: torch.Tensor):
     """`model(x)` in eval mode through its graph of `x`'s shape."""
-    graphs = _eval_graphs.setdefault(model, GraphCache())
+    graphs = _eval_graphs.setdefault(model, GraphCache("eval"))
     return graphs(("forward", model.training, storage_of(model)), model, (x,))
 
 MAX_CACHED_FRAMES = 4400  # split size up to which frames are staged on the device

@@ -270,7 +270,7 @@ def train(args, dev, db, pose_ds, mesh=None) -> int:
         eval_batch = synth_batch(999983, 0)
         eval_noise = shard(sample_pose_noise(
             generator_for("eval", 424242, device=dev), args.batch_size))
-        eval_graphs = GraphCache()
+        eval_graphs = GraphCache("eval")
 
         def eval_errors(batch, noise):
             TCO_init = apply_pose_noise(batch.TCO_gt, *noise)

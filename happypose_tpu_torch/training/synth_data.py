@@ -35,6 +35,7 @@ from happypose_tpu_torch.meshes.io import (
 from happypose_tpu_torch.ops.rasterizer_fused import render_batch_fused
 from happypose_tpu_torch.training.forward_loss import PoseTrainingBatch
 from happypose_tpu_torch.utils.cuda_graphs import GraphCache
+from happypose_tpu_torch.utils.profiling import annotate
 
 
 def make_synth_mesh_db(
@@ -120,7 +121,7 @@ def sample_synth_scenes(
 
 # The synthetic batch's graphs, one a key (a training cache: the batch's
 # tensors are ordinary tensors, which a train step's autograd may read).
-synth_batch_graphs = GraphCache(training=True)
+synth_batch_graphs = GraphCache("synth", training=True)
 
 
 def make_synth_batch(
@@ -129,8 +130,9 @@ def make_synth_batch(
     draws: Dict[str, torch.Tensor],
 ) -> PoseTrainingBatch:
     """`make_synth_batch_eager` through its graph (on CPU tensors, the same
-    path with a plain call)."""
-    return synth_batch_graphs("synth_batch", make_synth_batch_eager, (assets, K1, draws))
+    path with a plain call), under the span `train.batch`."""
+    with annotate("train.batch"):
+        return synth_batch_graphs("synth_batch", make_synth_batch_eager, (assets, K1, draws))
 
 
 def make_synth_batch_eager(

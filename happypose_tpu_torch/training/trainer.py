@@ -53,6 +53,7 @@ from happypose_tpu_torch.models.backbones import BatchNorm2d
 from happypose_tpu_torch.parallel.mesh import shard_leading
 from happypose_tpu_torch.training.forward_loss import Draws, LossFn
 from happypose_tpu_torch.utils.cuda_graphs import GraphCache, storage_of
+from happypose_tpu_torch.utils.profiling import annotate
 
 
 
@@ -262,7 +263,8 @@ def _all_reduce_mean(tensors: List[torch.Tensor], group, size: int) -> None:
 
 def _read(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The metrics as floats, in one host read."""
-    values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
+    with annotate("train.read"):
+        values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
 
 
@@ -280,7 +282,8 @@ class TrainStep:
     the parameters, buffers and optimizer state, the precision and cuDNN
     flags and the specs of `batch` and `draws`. A data-parallel step on
     the card captures its NCCL collectives. `eager` is the body outside
-    any graph."""
+    any graph. A call runs under the span `train.step`, the metrics' host
+    read under `train.read`."""
 
     def __init__(self, loss_fn: LossFn, mesh: Optional[DeviceMesh] = None, axis: str = "dp"):
         self.loss_fn, self.mesh, self.axis = loss_fn, mesh, axis
@@ -288,7 +291,7 @@ class TrainStep:
         if mesh is not None:
             self.group = mesh.get_group(axis)
             self.size = mesh.size(mesh.mesh_dim_names.index(axis))
-        self.graphs = GraphCache(training=True)
+        self.graphs = GraphCache("train", training=True)
 
     def body(self, state: TrainState, batch: Any, draws: Draws) -> Dict[str, torch.Tensor]:
         """One step on the device: the metrics as device tensors; no host
@@ -329,13 +332,14 @@ class TrainStep:
         return _read(out)
 
     def __call__(self, state: TrainState, batch: Any, draws: Draws) -> Dict[str, float]:
-        opt = state.optimizer
-        key = ("train_step", storage_of(state.model),
-               tuple(t.data_ptr() for t in opt.state_tensors()))
-        out = self.graphs(key, lambda b, d: self.body(state, b, d), (batch, draws),
-                          captured=(self.loss_fn, state.model, opt))
-        state.step += 1
-        return _read(out)
+        with annotate("train.step"):
+            opt = state.optimizer
+            key = ("train_step", storage_of(state.model),
+                   tuple(t.data_ptr() for t in opt.state_tensors()))
+            out = self.graphs(key, lambda b, d: self.body(state, b, d), (batch, draws),
+                              captured=(self.loss_fn, state.model, opt))
+            state.step += 1
+            return _read(out)
 
 
 def make_train_step(loss_fn: LossFn, mesh: Optional[DeviceMesh] = None,

@@ -53,7 +53,18 @@ The kernel's launch count (`ops.rasterizer_fused.launches`) is kept by its
 wrapper alone: it counts the warm-up's launches and the capture's (each
 records the kernel into the graph), and a replay, which runs no Python,
 adds nothing. A replay's launches are counted on the device, from the
-kernels `torch.profiler` records (`bench.busy_share`).
+kernels `torch.profiler` records (`bench.busy_share`, which also gives the
+union of their intervals over the call's wall time).
+
+Each cache has a name (`pipeline`, `stage`, `detector`, `train`, `synth`,
+`eval`) and counts, in `utils.profiling`'s counters, its captures (a key's
+first call), their seconds and its replays: `graphs.<name>.captures`,
+`graphs.<name>.capture_s`, `graphs.<name>.replays` (on the CPU, a key's
+first call and its later plain calls). A capture runs under the span
+`graphs.capture` and a replay, with the clone of its outputs, under
+`graphs.replay`. The stage timings (`profiling.stage`) recorded into a
+graph while it is captured are kept with its entry and read after each
+replay made while a profiler is active.
 """
 
 from __future__ import annotations
@@ -64,6 +75,8 @@ import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
+
+from happypose_tpu_torch.utils import profiling
 
 
 def _leaves(x) -> List[torch.Tensor]:
@@ -153,17 +166,19 @@ class _Entry:
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: object = None  # the graph's static outputs
     capture_s: float = 0.0  # warm-up + capture (+ first replay), seconds
+    stages: list = dataclasses.field(default_factory=list)  # `profiling.stage` pairs in the graph
 
 
 class GraphCache:
     """One captured callable per key (see the module docstring). Not
     thread-safe: captures and replays are serial. `training`: outside
     inference mode, and a call is one run of the function (see the module
-    docstring)."""
+    docstring). `name` names its counters."""
 
-    def __init__(self, training: bool = False):
+    def __init__(self, name: str, training: bool = False):
         self._entries: Dict[tuple, _Entry] = {}
         self._pool = None
+        self.name = name
         self.training = training
 
     def __len__(self) -> int:
@@ -195,27 +210,37 @@ class GraphCache:
             raise ValueError(f"graphed calls run on CUDA or CPU tensors, not {device}")
         if _is_capturing(device):
             return fn(*args)
+        profiling.flush()  # the last traced replay's stage times, before a replay overwrites them
         full_key = (key, tuple(id(o) for o in captured), _precision_flags(), _algorithm_flags(),
                     _spec(args))
         with torch.no_grad() if self.training else torch.inference_mode():
             entry = self._entries.get(full_key)
-            if entry is None:
+            new = entry is None
+            if new:
                 inputs = [torch.empty_like(t) for t in leaves]
                 it = iter(inputs)
                 entry = _Entry(inputs, _map(args, lambda _: next(it)), tuple(captured))
             for buf, t in zip(entry.inputs, leaves):
                 buf.copy_(t)
-        with torch.enable_grad() if self.training else torch.inference_mode():
+        with (torch.enable_grad() if self.training else torch.inference_mode(),
+              profiling.annotate("graphs.capture" if new else "graphs.replay")):
             if device.type == "cpu":
-                self._entries.setdefault(full_key, entry)
-                return _clone_out(fn(*entry.args))
-            if entry.graph is None:
+                out = fn(*entry.args)
+            elif new:
                 with torch.cuda.device(device):
-                    first = self._capture(entry, fn)
+                    out = self._capture(entry, fn)
+            else:
+                entry.graph.replay()
+                profiling.replayed(entry.stages)
+                out = entry.outputs
+            if new:
                 self._entries[full_key] = entry
-                return _clone_out(first)
-            entry.graph.replay()
-            return _clone_out(entry.outputs)
+                self._count("capture_s", entry.capture_s)
+            self._count("captures" if new else "replays")
+            return _clone_out(out)
+
+    def _count(self, what: str, n: float = 1) -> None:
+        profiling.count(f"graphs.{self.name}.{what}", n)
 
     def _capture(self, entry: _Entry, fn: Callable):
         """Warm `fn` up on a side stream, capture it, and return the outputs
@@ -231,12 +256,12 @@ class GraphCache:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with profiling.capturing_stages() as stages, torch.cuda.graph(graph, pool=self._pool):
             outputs = fn(*entry.args)
         if not self.training:
             graph.replay()
         torch.cuda.synchronize()
-        entry.graph, entry.outputs = graph, outputs
+        entry.graph, entry.outputs, entry.stages = graph, outputs, stages
         entry.capture_s = time.perf_counter() - t0
         return warm if self.training else outputs
 

@@ -329,7 +329,7 @@ def test_graph_cache_on_the_cpu():
     """The cache's plain path: entries per input shape and per captured
     object, outputs cloned (a tensor the function returns twice is cloned
     once), and an input that is returned does not alias its buffer."""
-    cache = GraphCache()
+    cache = GraphCache("plain")
     calls = []
 
     def fn(x, pair):
