@@ -30,8 +30,10 @@ Phases (any failure raises, so the exit code is nonzero):
 4. The slice at full width: `load_named_model("megapose-RGB")` (ResNet34,
    240x320 RGB + normals renders, 576-rotation grid, top-5, 5 refiner
    iterations) with seeded weights and a perturbed pose head, on a
-   synthetic 480x640 frame with 2 detections. The launch counter must show
-   the number of renders the config implies; warm s/image is timed.
+   synthetic 480x640 frame with 2 detections. The launch counter of a
+   second frame must show the coarse and scoring renders the config
+   implies (the refiner's chunks replay the stage graphs that the first
+   frame captured; `_eager_launches`); warm s/image is timed.
 5. The same pipeline cut to 64x128 renders, a 72-rotation grid, top-2 and
    2 iterations, on the card and on the CPU (the plain path): logits and
    final poses must agree.
@@ -43,8 +45,9 @@ Phases (any failure raises, so the exit code is nonzero):
    raw outputs; forward and post-processing timed warm.
 7. `load_named_model("cosypose-RGB")` at full width (WideResNet34, 240x320
    RGB renders, 1 coarse + 4 refiner iterations) with seeded weights and
-   perturbed pose heads, on the frame's 2 boxes: the launch counter must
-   show ceil(D / bsz_objects) x (1 + 4) renders; warm s/image, the stage
+   perturbed pose heads, on the frame's 2 boxes: the launch counter of a
+   second frame must show none (every render is a pose update's, whose
+   stage graphs the first frame captured); warm s/image, the stage
    split, peak memory and the number of device kernels of one frame
    (`torch.profiler`) are reported.
 8. Detector -> box mapping (as the evaluation runner maps them back to the
@@ -57,7 +60,8 @@ Phases (any failure raises, so the exit code is nonzero):
    instances' depth renders). `megapose-RGB` at full width with
    `run_depth_refiner=True`, once with ICP and once with "teaserpp":
    `results["depth_refined"]` present, finite, one valid pose per
-   detection, 10 + 1 launches (the depth render at 120x160); s/image beside
+   detection, the coarse and scoring renders + 1 launches (the depth render
+   at 120x160; the refiner's stage graphs replay); s/image beside
    the RGB-only figure and the depth refiner's own seconds.
 11. The depth refiners do their job: `min`, `argmin` and `argmax` return
    the first extremum among equals on the card and the descending sort is
@@ -688,6 +692,37 @@ def _megapose_launches(est, D: int) -> int:
     return _frame_launches(est.cfg, D, est.SO3_grid.shape[0])
 
 
+def _chunk_keys(rows: int, bsz: int) -> int:
+    """Stage graph keys of `rows` pose updates in chunks of `bsz`: the full
+    chunks' shape and a ragged last chunk's."""
+    return int(rows >= bsz) + int(rows % bsz > 0)
+
+
+def _stage_launches(cfg, updates) -> int:
+    """The wrapper's launches of pose updates (`PoseEstimator._update_poses`),
+    given as (rows, iterations) of each model, on their keys' first call:
+    every chunk goes through the stage graph of its shape (`_refine_fn`),
+    whose first call counts its warm-up and capture (`_graph_launches`);
+    the other chunks, and every later call, replay and count none."""
+    return sum(_graph_launches(it, _chunk_keys(rows, cfg.bsz_objects)) for rows, it in updates)
+
+
+def _eager_launches(cfg, D: int, grid_size=None, first: bool = False) -> int:
+    """The wrapper's launches of an eager frame (`run_inference_pipeline`)
+    with D detections: MegaPose's coarse and scoring chunks, then the pose
+    updates (`_stage_launches`): MegaPose's refiner on D x top-K rows,
+    CosyPose's coarse model and refiner on D rows, counted when the frame
+    is the `first` of its shapes."""
+    if grid_size is None:
+        eager, updates = 0, [(D, cfg.n_coarse_iterations), (D, cfg.n_refiner_iterations)]
+    else:
+        rows = D * cfg.n_pose_hypotheses
+        updates = [(rows, cfg.n_refiner_iterations)]
+        eager = (_frame_launches(cfg, D, grid_size)
+                 - math.ceil(rows / cfg.bsz_objects) * cfg.n_refiner_iterations)
+    return eager + (_stage_launches(cfg, updates) if first else 0)
+
+
 def _small_megapose(**inference_kw):
     """The megapose-RGB spec cut to 64x128 renders, a 72-rotation grid,
     top-2 and 2 iterations."""
@@ -721,7 +756,8 @@ def phase_pipeline(dev) -> tuple:
 
     D = det.n_rows
     n_refine = D * cfg.n_pose_hypotheses
-    expected = _megapose_launches(est, D)
+    # the first run captured the refiner's stage graphs: this one replays them
+    expected = _eager_launches(cfg, D, est.SO3_grid.shape[0])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -797,7 +833,8 @@ def phase_rgbd_pipeline(dev) -> dict:
     rgb_cfg = est.cfg
     D = det.n_rows
     n_refine = D * rgb_cfg.n_pose_hypotheses
-    expected = _megapose_launches(est, D) + 1  # the depth render of all D x top-K rows
+    # the refiner's stage graphs replayed; the depth render of all D x top-K rows
+    expected = _eager_launches(rgb_cfg, D, est.SO3_grid.shape[0]) + 1
     est.run_inference_pipeline(obs, det)  # warm-up: cuDNN autotuning, allocator
     t_rgb = [_timed(lambda: est.run_inference_pipeline(obs, det))[1] for _ in range(3)]
     launches = {}
@@ -1157,7 +1194,7 @@ def phase_cosypose(dev) -> int:
     est = _load("cosypose-RGB", db, dev)
     cfg = est.cfg
     D = det.n_rows
-    expected = _frame_launches(cfg, D)
+    expected = _eager_launches(cfg, D)  # every render is a pose update's, replayed
     log(f"cosypose: cosypose-RGB, {est.refiner_model.cfg.backbone}, render "
         f"{est.refiner_model.cfg.render_size}, {cfg.n_coarse_iterations} coarse + "
         f"{cfg.n_refiner_iterations} refiner iterations, D={D}")
@@ -1238,7 +1275,7 @@ def phase_chained(dev) -> int:
     assert det.n_rows >= 1 and torch.isfinite(det.boxes).all()
     assert final.poses.shape == (det.n_rows, 4, 4) and torch.isfinite(final.poses).all()
     assert bool(final.valid.all())
-    expected = _frame_launches(est.cfg, det.n_rows)
+    expected = _eager_launches(est.cfg, det.n_rows)  # the warm-up captured its stage graphs
     assert launches == expected, f"kernel launches {launches} != {expected}"
     return launches
 
@@ -1702,7 +1739,7 @@ def phase_example(dev, root: Path) -> int:
     from happypose_tpu_torch.utils.load_model import NAMED_MODELS
 
     cfg = NAMED_MODELS["megapose-RGB"].inference_cfg
-    expected = 1 + _frame_launches(dataclasses.replace(cfg, bsz_images=72), 1, 72) + 1
+    expected = 1 + _eager_launches(dataclasses.replace(cfg, bsz_images=72), 1, 72, first=True) + 1
     assert launches == expected, f"kernel launches {launches} != {expected}"
     return launches
 
@@ -3139,8 +3176,9 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
     and `--backbone flownet` a refiner (240x320 renders, 480x640 images,
     2 steps each), then `run_accuracy_demo` at megapose-RGB's width reads
     them: EfficientNet-B3 refiner + coarse (576-rotation grid, top-5, 5
-    iterations; 1 + 32 + 25 + 1 launches a batch of 16 scenes) and the
-    FlowNetS refiner alone (the CosyPose flavour: 1 + 5). Seconds a batch,
+    iterations; 1 + 32 + 1 launches a batch of 16 scenes, + 2 x 5 for the
+    refiner's stage graph in the first) and the FlowNetS refiner alone (the
+    CosyPose flavour: 1 a batch, + 2 x 5 in the first). Seconds a batch,
     the stage split, peak memory; every shape the demo launches at is held
     to the plain version with the demo's own inputs."""
     from happypose_tpu_torch.ops import rasterizer_fused as rf
@@ -3182,13 +3220,16 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
     # the batch of scenes, phase 3's training row
     held = {(TRAIN_BATCH["refiner"], FRAME_RES)}
     # a batch: its scenes (the synthetic batch's graph: a new key's warm-up
-    # and capture, else a replay), then the pipeline on one detection a scene
-    for name, dirs, per_batch in (
+    # and capture, else a replay), then the pipeline on one detection a scene,
+    # whose refiner chunks capture their stage graphs in the first batch and
+    # replay them after (`once`)
+    for name, dirs, per_batch, once in (
             ("efficientnet_b3 refiner + coarse",
              ["--refiner-dir", str(runs / "b3_refiner"), "--coarse-dir", str(runs / "b3_coarse")],
-             _frame_launches(icfg, DEMO_BATCH, DEMO_GRID)),
-            ("flownet refiner", ["--refiner-dir", str(runs / "flownet_refiner")],
-             math.ceil(DEMO_BATCH / icfg.bsz_objects) * DEMO_ITERATIONS)):
+             _eager_launches(icfg, DEMO_BATCH, DEMO_GRID),
+             _stage_launches(icfg, [(DEMO_BATCH * DEMO_HYPOTHESES, DEMO_ITERATIONS)])),
+            ("flownet refiner", ["--refiner-dir", str(runs / "flownet_refiner")], 0,
+             _stage_launches(icfg, [(DEMO_BATCH, DEMO_ITERATIONS)]))):
         out = root / "accuracy_demo.json"
         inputs = _KernelInputs()
         torch.cuda.synchronize()
@@ -3199,7 +3240,7 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
             rc, t = _timed(lambda: run_accuracy_demo.main(
                 dirs + demo_args + ["--out", str(out), "--device", str(dev)]))
             n = rf.launches
-            synth = _graph_launches(1, _synth_keys() - k0)
+            captures = _graph_launches(1, _synth_keys() - k0) + once
         peak = torch.cuda.max_memory_allocated() / 2**30 - resident
         summary = json.loads(out.read_text())
         stages = {k: round(sum(v) / n_batches, 4) for k, v in clock.seconds.items() if v}
@@ -3209,8 +3250,8 @@ def phase_backbone_serving(dev, root: Path, kernel: dict) -> dict:
         log(f"run_accuracy_demo {name}: {t:.2f} s for {n_batches} batches of {DEMO_BATCH} scenes "
             f"({t / n_batches:.3f} s a batch, models loaded and first calls included); stage "
             f"seconds a batch {stages}; peak memory {peak:.2f} GiB above the resident; launches "
-            f"{n} (expected {per_batch * n_batches + synth}); summary {json.dumps(summary)}")
-        assert rc == 0 and n == per_batch * n_batches + synth, (n, per_batch * n_batches + synth)
+            f"{n} (expected {per_batch * n_batches + captures}); summary {json.dumps(summary)}")
+        assert rc == 0 and n == per_batch * n_batches + captures, (n, per_batch * n_batches + captures)
         assert summary["n_scenes"] == DEMO_SCENES
         # what bounds the slowest stage: its last call again, under the profiler
         stage = max(stages, key=stages.get)
@@ -3415,7 +3456,7 @@ def phase_sharded(dev, root: Path, scene: Path) -> dict:
     res = sharded.run_inference_pipeline(obs, det)
     torch.cuda.synchronize()
     launches["megapose-RGB sharded frame (world 1)"] = n_frame = rf.launches
-    assert n_frame == _megapose_launches(est, D), n_frame
+    assert n_frame == _eager_launches(est.cfg, D, M, first=True), n_frame
     final = res["final"]
     assert torch.isfinite(final.poses).all() and int(final.valid.sum()) == D
     t_sh = _median_timed(lambda: sharded.forward_coarse(obs, det))

@@ -24,7 +24,11 @@ The JAX package's compiled entry points are CUDA graphs here
 (`utils/cuda_graphs.py`): `forward_coarse_jit` and
 `run_inference_pipeline_jit` capture a whole stage or frame once per shape
 key and replay it per frame; the stage programs `_coarse_logits_fn` and
-`_refine_fn` capture one chunk of one model. The eager methods stay eager.
+`_refine_fn` capture one chunk of one model. As in the JAX package, every
+chunk of pose updates (`forward_refiner`, CosyPose's coarse model) goes
+through `_refine_fn`: called alone (a tracked frame) each chunk is one
+replay of its shape's graph; inside a frame's graph it runs plainly and
+the frame's graph records it. The other methods run eagerly.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ _stage_graphs: "weakref.WeakKeyDictionary[PosePredictor, GraphCache]" = weakref.
 
 
 def _stage_call(model: PosePredictor, key, fn, args, assets):
-    graphs = _stage_graphs.setdefault(model, GraphCache("stage"))
+    graphs = _stage_graphs.get(model)
+    if graphs is None:
+        graphs = _stage_graphs[model] = GraphCache("stage")
     key = (key, model.cfg, model.training, storage_of(model))
     return graphs(key, fn, args, captured=(assets,))
 
@@ -248,18 +254,16 @@ class PoseEstimator:
         estimates: PoseEstimateBatch, n_iterations: int,
     ) -> Tuple[PoseEstimateBatch, Dict[str, PoseEstimateBatch]]:
         """`n_iterations` pose updates of `model` on all estimates,
-        `bsz_objects` at a time."""
+        `bsz_objects` at a time, each chunk through `_refine_fn`."""
         images = _model_images(model, obs)
         chunks = []
         for s in range(0, estimates.n_rows, self.cfg.bsz_objects):
             sl = slice(s, s + self.cfg.bsz_objects)
             obj_ids = estimates.obj_ids[sl]
-            out = model(
-                images[estimates.batch_im_ids[sl]], estimates.K[sl], obj_ids,
-                estimates.poses[sl], self.assets, self.meshes.select(obj_ids),
-                n_iterations=n_iterations,
-            )
-            chunks.append(out.TCO_output)  # [n_iter, chunk, 4, 4]
+            chunks.append(_refine_fn(  # [n_iter, chunk, 4, 4]
+                model, images[estimates.batch_im_ids[sl]], estimates.K[sl], obj_ids,
+                estimates.poses[sl], self.assets, self.meshes.select(obj_ids), n_iterations,
+            ))
         all_iters = torch.cat(chunks, dim=1)
         per_iter = {
             f"iteration={it + 1}": dataclasses.replace(estimates, poses=all_iters[it])

@@ -1,9 +1,11 @@
 """CUDA graphs of the port's compiled entry points: the counterpart of the
 JAX package's jit caches (`inference/pose_estimator.py`: the stage programs
-`_coarse_logits_fn` / `_refine_fn`, `forward_coarse_jit`,
-`run_inference_pipeline_jit`; `inference/detector.py`: the detector's
-forward; `training/trainer.py`: the train step; `training/synth_data.py`:
-the synthetic batch; the training scripts' eval forwards).
+`_coarse_logits_fn` and `_refine_fn`, through which every chunk of pose
+updates goes (`forward_refiner`, CosyPose's coarse model),
+`forward_coarse_jit`, `run_inference_pipeline_jit`;
+`inference/detector.py`: the detector's forward; `training/trainer.py`:
+the train step; `training/synth_data.py`: the synthetic batch; the
+training scripts' eval forwards).
 
 JAX traces one program per shape key and dispatches it once per call. Here
 a `GraphCache` maps a key to a captured callable:
@@ -34,9 +36,14 @@ On a CUDA tensor a call captures or replays, or raises: it never runs the
 function eagerly in the graph's place. On a CPU tensor it takes the same
 path with a plain call in place of the graph (static buffers in, clones
 out), as `ops.rasterizer_fused.raster_fused` sends a CPU tensor to its
-plain version. Called while a capture is in progress, it calls the
-function plainly, so that one graph's function may call another's: the
-outer capture records the inner work.
+plain version. Called inside another cache's call (its warm-up, its
+capture or its CPU plain call) or while any capture is in progress, it
+calls the function plainly and counts nothing, so that one graph's
+function may call another's: the outer graph records the inner work, as
+a jit called inside a jit is inlined. So the refiner's chunk is a graph
+of its own when `PoseEstimator.forward_refiner` is called alone (a
+tracked frame) and a part of the frame's graph inside
+`run_inference_pipeline_jit`.
 
 A training cache (`GraphCache(training=True)`: the train step's, and the
 synthetic batch's, whose outputs autograd reads) runs outside inference
@@ -69,10 +76,10 @@ replay made while a profiler is active.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import itertools
 import time
-from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,13 +156,35 @@ def _algorithm_flags() -> Tuple[bool, bool]:
 
 def storage_of(*modules: torch.nn.Module) -> Tuple[int, ...]:
     """The addresses of the modules' parameters and buffers, which a
-    capture reads."""
-    return tuple(t.data_ptr() for m in modules
-                 for t in itertools.chain(m.parameters(), m.buffers()))
+    capture reads. Read on every graphed call, so the module tree is
+    walked directly, at about half the host time of `parameters()` and
+    `buffers()`."""
+    ptrs, stack = [], list(reversed(modules))
+    while stack:
+        m = stack.pop()
+        for tensors in (m._parameters, m._buffers):
+            ptrs.extend(t.data_ptr() for t in tensors.values() if t is not None)
+        stack.extend(c for c in reversed(m._modules.values()) if c is not None)
+    return tuple(ptrs)
 
 
 def _is_capturing(device: torch.device) -> bool:
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+# `GraphCache` calls running their function (a warm-up, a capture or a CPU
+# plain call): a cache called inside one runs its function plainly
+_running = 0
+
+
+@contextlib.contextmanager
+def _running_fn() -> Iterator[None]:
+    global _running
+    _running += 1
+    try:
+        yield
+    finally:
+        _running -= 1
 
 
 @dataclasses.dataclass
@@ -208,7 +237,7 @@ class GraphCache:
         device = leaves[0].device
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"graphed calls run on CUDA or CPU tensors, not {device}")
-        if _is_capturing(device):
+        if _running or _is_capturing(device):
             return fn(*args)
         profiling.flush()  # the last traced replay's stage times, before a replay overwrites them
         full_key = (key, tuple(id(o) for o in captured), _precision_flags(), _algorithm_flags(),
@@ -225,9 +254,10 @@ class GraphCache:
         with (torch.enable_grad() if self.training else torch.inference_mode(),
               profiling.annotate("graphs.capture" if new else "graphs.replay")):
             if device.type == "cpu":
-                out = fn(*entry.args)
+                with _running_fn():
+                    out = fn(*entry.args)
             elif new:
-                with torch.cuda.device(device):
+                with torch.cuda.device(device), _running_fn():
                     out = self._capture(entry, fn)
             else:
                 entry.graph.replay()

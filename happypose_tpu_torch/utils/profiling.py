@@ -114,8 +114,8 @@ class _Stage:
 @contextlib.contextmanager
 def capturing_stages() -> Iterator[List[_Pair]]:
     """Around a graph's capture: yields the list that the stages recorded
-    into the graph go to. (A `GraphCache` called inside a capture runs its
-    function plainly, so captures do not nest.)"""
+    into the graph go to. (A `GraphCache` called inside another's call runs
+    its function plainly, so captures do not nest.)"""
     global _capture_pairs
     _capture_pairs = pairs = []
     try:

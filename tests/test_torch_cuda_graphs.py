@@ -17,6 +17,7 @@ renderer. The card's test is `test_torch_cuda_graphs_card.py`.
 """
 
 import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
 from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
 from happypose_tpu_torch.ops import rasterizer_fused as rf
 from happypose_tpu_torch.utils import load_model as torch_load_model
+from happypose_tpu_torch.utils import profiling
 from happypose_tpu_torch.utils.cuda_graphs import GraphCache, device_constant
 from happypose_tpu_torch.utils.weights_from_jax import pose_predictor_state_dict
 from test_torch_depth import FRAME, _rgbd_frame
@@ -230,6 +232,87 @@ def test_stage_programs_equal_the_model(world):
     assert len(tpe._stage_graphs[est.refiner_model]) == 2
 
 
+@pytest.fixture(scope="module")
+def megapose(world):
+    """The port's cut megapose-RGB estimator (seeded weights) and the coarse
+    stage's estimates on the seeded frame (16 rows)."""
+    est = torch_load_model.load_named_model(_small(torch_load_model.NAMED_MODELS["megapose-RGB"]),
+                                            world["tdb"], n_points=200, device="cpu")
+    obs, det = _inputs(world, "megapose-RGB")
+    return est, obs, est.forward_coarse(obs, det)
+
+
+def _stage_counts():
+    counters = profiling.counters()
+    return {w: counters.get(f"graphs.stage.{w}", 0) for w in ("captures", "replays")}
+
+
+@pytest.mark.parametrize("n_iterations", (1, 2))
+@pytest.mark.parametrize("rows", (4, 3))
+def test_forward_refiner_equals_the_model(megapose, rows, n_iterations, monkeypatch):
+    """`forward_refiner` sends each chunk of `bsz_objects` (2) rows through
+    the refiner's stage graph: two full chunks (4 rows) or a full and a
+    ragged one (3 rows), one key a chunk shape. Every iteration equals the
+    model's eager call on each chunk bit for bit, the other fields are the
+    input's, and a second call is one replay a chunk and no new key."""
+    est, obs, coarse = megapose
+    monkeypatch.setattr(tpe, "_stage_graphs", weakref.WeakKeyDictionary())
+    estimates = coarse.select(torch.arange(rows))
+    final, per_iter = est.forward_refiner(obs, estimates, n_iterations)
+
+    images = tpe._model_images(est.refiner_model, obs)
+    chunks = []
+    with torch.inference_mode():
+        for s in range(0, rows, 2):
+            sl = slice(s, s + 2)
+            ids = estimates.obj_ids[sl]
+            chunks.append(est.refiner_model(
+                images[estimates.batch_im_ids[sl]], estimates.K[sl], ids, estimates.poses[sl],
+                est.assets, est.meshes.select(ids), n_iterations=n_iterations).TCO_output)
+    ref = torch.cat(chunks, dim=1)
+    assert torch.isfinite(ref).all() and not torch.equal(ref[-1], estimates.poses)
+    assert sorted(per_iter) == [f"iteration={k + 1}" for k in range(n_iterations)]
+    assert final is per_iter[f"iteration={n_iterations}"]
+    for k in range(n_iterations):
+        out = per_iter[f"iteration={k + 1}"]
+        torch.testing.assert_close(out.poses, ref[k], rtol=0, atol=0)
+        for f in dataclasses.fields(out):
+            if f.name != "poses":
+                assert torch.equal(getattr(out, f.name), getattr(estimates, f.name)), f.name
+
+    cache = tpe._stage_graphs[est.refiner_model]
+    n_keys = len({min(2, rows - s) for s in range(0, rows, 2)})
+    assert len(cache) == n_keys
+    before = _stage_counts()
+    again, _ = est.forward_refiner(obs, estimates, n_iterations)
+    assert len(cache) == n_keys
+    assert _stage_counts() == {"captures": before["captures"], "replays": before["replays"] + 2}
+    torch.testing.assert_close(again.poses, final.poses, rtol=0, atol=0)
+
+
+def test_a_frame_graph_runs_the_refiner_plainly(megapose, world, monkeypatch):
+    """Inside `run_inference_pipeline_jit`'s call (on the CPU its plain call;
+    on the card its warm-up and capture) the refiner's chunks run plainly:
+    the frame's first call and its second move `graphs.pipeline.*` and
+    leave `graphs.stage.*` and the stage caches as they were. The eager
+    pipeline sends the same chunks (4 rows, 2 a chunk) through one stage
+    key: a capture, then a replay."""
+    est, obs, _ = megapose
+    monkeypatch.setattr(tpe, "_stage_graphs", weakref.WeakKeyDictionary())
+    det = _inputs(world, "megapose-RGB")[1]
+    before, pipeline = _stage_counts(), profiling.counters().get("graphs.pipeline.replays", 0)
+    graphed = est.run_inference_pipeline_jit(obs, det)
+    est.run_inference_pipeline_jit(obs, det)
+    assert profiling.counters()["graphs.pipeline.replays"] == pipeline + 1
+    assert _stage_counts() == before
+    assert [len(c) for c in tpe._stage_graphs.values()] in ([], [0])
+    eager = est.run_inference_pipeline(obs, det)
+    assert _stage_counts() == {"captures": before["captures"] + 1,
+                               "replays": before["replays"] + 1}
+    assert len(tpe._stage_graphs[est.refiner_model]) == 1
+    torch.testing.assert_close(graphed["final"].poses, eager["final"].poses, rtol=0, atol=0)
+
+
 def test_detector_graphed_forward_equals_eager():
     torch.manual_seed(0)
     model = FCOSDetector(DetectorConfig(n_classes=3, fpn_channels=32)).init_weights(
@@ -323,6 +406,26 @@ def test_kabsch_equals_svd():
     torch.testing.assert_close(out.double(), ref, rtol=0, atol=KABSCH_TOL)
     # H = 0 (every weight 0): the identity, as the SVD's U = V = I gives
     torch.testing.assert_close(_kabsch(torch.zeros(2, 3, 3)), torch.eye(3).expand(2, 3, 3))
+
+
+def test_a_cache_called_inside_a_cache_runs_plainly():
+    """A `GraphCache` called inside another's call (here its CPU plain call)
+    runs its function plainly: no entry, no count. Alone it counts."""
+    inner, outer = GraphCache("inner_test"), GraphCache("outer_test")
+
+    def inner_fn(x):
+        return x + 1
+
+    def outer_fn(x):
+        return inner("k", inner_fn, (x,)) * 2
+
+    x = torch.arange(3.0)
+    torch.testing.assert_close(outer("k", outer_fn, (x,)), (x + 1) * 2)
+    counters = profiling.counters()
+    assert len(inner) == 0 and "graphs.inner_test.captures" not in counters
+    assert counters["graphs.outer_test.captures"] == 1
+    inner("k", inner_fn, (x,))
+    assert len(inner) == 1 and profiling.counters()["graphs.inner_test.captures"] == 1
 
 
 def test_graph_cache_on_the_cpu():
