@@ -283,6 +283,17 @@ Phases (any failure raises, so the exit code is nonzero):
    Phases 20-22, 24, 27-29, 35, 36, 38 and 40 train through the graphed
    step too: the wrapper counts each key's warm-up and capture
    (`_graph_launches`), device traces the replays.
+43. Mask R-CNN's kernels (`ops/nms.py`, `ops/multiscale_roi_align.py`,
+   `csrc/mask_rcnn_ops.cu`) on the detector's own frame:
+   `load_detector(MaskRCNNConfig(...))` at every published setting on the
+   480x640 synthetic frame of phase 4. The first frame's warm-up and
+   capture count each wrapper's two calls twice, two replays none, and a
+   replay's device trace holds each kernel twice. The warm-up's calls are
+   held to `nms_reference` (index for index) and `roi_align_reference`
+   (`ROI_ALIGN_RTOL` of the largest feature) on their own inputs. Each
+   kernel's device time a frame is given beside its least time from
+   `benchmark/maskrcnn_counts.py`, as rows "nms" and "roi_align" of the
+   kernels line.
 
 Everything written goes into a `tempfile.TemporaryDirectory()`. Prints the
 nvidia-smi line (first, and again before the kernel results), a JSON line
@@ -4331,6 +4342,203 @@ def phase_graphed_training(dev) -> dict:
     return {"launches": launches, "traced": traced, "figures": figures}
 
 
+MASKRCNN_KERNELS = {"nms": ("nms_mask_kernel", "nms_scan_kernel"),
+                    "roi_align": ("roi_align_kernel",)}  # csrc/mask_rcnn_ops.cu
+ROI_ALIGN_RTOL = 1e-6  # of the features' largest |value|: the plain version's float32 operations
+
+
+def _tensors_mapped(x, fn):
+    """A call's arguments or outputs with `fn` applied to each tensor, lists
+    and tuples copied through, the rest as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tensors_mapped(v, fn) for v in x)
+    return x
+
+
+class _MaskRCNNCalls:
+    """While active, keeps the arguments and outputs of each `nms` and
+    `multiscale_roi_align` call of Mask R-CNN's forward that runs (not those
+    a graph capture records), by wrapper."""
+
+    def __enter__(self):
+        from happypose_tpu_torch.models import mask_rcnn as mr
+
+        self.calls = {"nms": [], "roi_align": []}
+        self._wrapped = {"nms": mr.nms, "multiscale_roi_align": mr.multiscale_roi_align}
+
+        def recording(name, fn):
+            def call(*args):
+                out = fn(*args)
+                if not torch.cuda.is_current_stream_capturing():
+                    self.calls[name].append(_tensors_mapped((args, out), torch.clone))
+                return out
+            return call
+
+        mr.nms = recording("nms", mr.nms)
+        mr.multiscale_roi_align = recording("roi_align", mr.multiscale_roi_align)
+        return self
+
+    def __exit__(self, *exc):
+        from happypose_tpu_torch.models import mask_rcnn as mr
+
+        for name, fn in self._wrapped.items():
+            setattr(mr, name, fn)
+
+
+def _maskrcnn_bounds(calls: dict) -> dict:
+    """The least time of one frame's calls of each kernel family, by
+    `benchmark/maskrcnn_counts.py` (the counts `nms_roofline.maskrcnn` and
+    `roi_align_roofline.maskrcnn` read): NMS its candidates read and its
+    bitmask written once, over the memory rate; RoIAlign the larger of its
+    bytes (outputs once, each touched feature value once) over the memory
+    rate and its flops over the float32 rate."""
+    from benchmark import maskrcnn_counts
+
+    nms_bytes = sum(maskrcnn_counts.nms_bytes(args[1].shape[-1], args[1].numel()
+                                              // args[1].shape[-1])
+                    for args, _ in calls["nms"])
+    roi_bytes = roi_flops = 0
+    for (feats, scales, rois, levels, size, S), _ in calls["roi_align"]:
+        hw = [tuple(f.shape[-2:]) for f in feats]
+        for b in range(rois.shape[0]):
+            n_bytes, n_flops = maskrcnn_counts.roi_align_work(
+                hw, scales, feats[0].shape[1], rois[b].cpu().numpy(), levels[b].cpu().numpy(),
+                size, S)
+            roi_bytes, roi_flops = roi_bytes + n_bytes, roi_flops + n_flops
+    out = {"nms": {"bytes_ms": nms_bytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0}}
+    out["roi_align"] = {"bytes_ms": roi_bytes / HBM_BYTES_PER_S * 1e3,
+                        "ops_ms": roi_flops / FP32_FLOP_PER_S * 1e3}
+    for v in out.values():
+        v.update(bound_ms=max(v["bytes_ms"], v["ops_ms"]),
+                 bound_by="bytes" if v["bytes_ms"] >= v["ops_ms"] else "operations")
+    return out
+
+
+def _maskrcnn_call_check(name: str, args: tuple, out) -> dict:
+    """One recorded call of a Mask R-CNN kernel against its plain version
+    on the CPU copies of its arguments: NMS keeps index for index,
+    RoIAlign within `ROI_ALIGN_RTOL` of the features' largest value.
+    Returns the call's shape, the plain version's ms and the gap ("gap":
+    RoIAlign's over the largest feature, NMS's 0)."""
+    from happypose_tpu_torch.ops import multiscale_roi_align as mra
+    from happypose_tpu_torch.ops import nms as nms_ops
+
+    cpu_args = _tensors_mapped(args, torch.Tensor.cpu)
+    t0 = time.perf_counter()
+    if name == "nms":
+        keep, kv = nms_ops.nms_reference(*cpu_args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got, got_v = (t.cpu() for t in out)
+        assert torch.equal(got_v, kv) and torch.equal(got[kv], keep[kv]), \
+            f"nms at {tuple(args[1].shape)}: the kernel's keeps differ from the plain scan's"
+        return {"candidates": args[1].shape[-1], "groups": int(cpu_args[2].max()) + 1,
+                "budget": args[5], "threshold": args[4], "kept": int(kv.sum()),
+                "plain_ms": plain_ms, "gap": 0.0}
+    want = mra.roi_align_reference(*cpu_args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    top = max(float(f.abs().max()) for f in cpu_args[0])
+    gap = float((out.cpu() - want).abs().max())
+    assert gap <= ROI_ALIGN_RTOL * top, f"roi_align: gap {gap} of {top}"
+    return {"rois": args[2].shape[1], "size": args[4], "channels": args[0][0].shape[1],
+            "levels": [int((cpu_args[3] == i).sum()) for i in range(len(args[0]))],
+            "plain_ms": plain_ms, "gap": gap / top}
+
+
+def phase_maskrcnn(dev) -> list:
+    """Phase 43: Mask R-CNN's kernels on the detector's own 480x640 frame.
+    `load_detector(MaskRCNNConfig(...))` at every published setting
+    (seeded, score threshold 0) on phase 4's synthetic frame: the first
+    frame warms up and captures the detector's graph, so each wrapper counts
+    its two calls twice (`_graph_launches`); a second frame replays it and
+    counts none, and its device trace holds each kernel twice. The calls the
+    warm-up made are held to their plain versions on their own inputs: NMS
+    index for index, RoIAlign to `ROI_ALIGN_RTOL` of the features' largest
+    value. Each kernel family's device time a frame (the replay's trace)
+    beside its least time (`_maskrcnn_bounds`), each wrapper call's time
+    (CUDA events, its sort and gathers included) and the plain version's.
+    Returns the kernels line's rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from happypose_tpu_torch.meshes import io
+    from happypose_tpu_torch.meshes.database import MeshDataBase
+    from happypose_tpu_torch.models.mask_rcnn import MaskRCNNConfig
+    from happypose_tpu_torch.ops import multiscale_roi_align as mra
+    from happypose_tpu_torch.ops import nms as nms_ops
+    from happypose_tpu_torch.utils import profiling
+    from happypose_tpu_torch.utils.load_model import load_detector
+
+    det = load_detector(MaskRCNNConfig(box_score_thresh=0.0), seed=0, device=dev,
+                        image_size=FRAME_RES)
+    db = debug_mesh_db(MeshDataBase, io)
+    (obs, _), (obs2, _) = _synthetic_frame(db, dev, seed=0), _synthetic_frame(db, dev, seed=1)
+
+    def replays():
+        c = profiling.counters()
+        return c.get("graphs.detector.captures", 0), c.get("graphs.detector.replays", 0)
+
+    nms_ops.launches = mra.launches = 0
+    c0 = replays()
+    with _MaskRCNNCalls() as rec:
+        rows, _ = det.get_detections(obs, detection_th=0.0)
+    torch.cuda.synchronize()
+    c1 = replays()
+    launches = {"nms": nms_ops.launches, "roi_align": mra.launches}
+    for name, calls in rec.calls.items():
+        assert len(calls) == 2, f"{name}: {len(calls)} calls in the warm-up, expected 2"
+        assert launches[name] == _graph_launches(2, 1), \
+            f"{name}: {launches[name]} launches in the first frame, expected {_graph_launches(2, 1)}"
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, 0), f"first frame: captures, replays {c0} -> {c1}"
+    det.get_detections(obs2, detection_th=0.0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        det.get_detections(obs, detection_th=0.0)
+        torch.cuda.synchronize()
+    c2 = replays()
+    assert (c2[0] - c1[0], c2[1] - c1[1]) == (0, 2), f"replays: captures, replays {c1} -> {c2}"
+    assert {"nms": nms_ops.launches, "roi_align": mra.launches} == launches, \
+        "a replay ran a wrapper"
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log(f"maskrcnn: {rows.n_rows} rows a frame; {launches} wrapper launches in the first frame "
+        f"(warm-up and capture), none in two replays")
+
+    bounds = _maskrcnn_bounds(rec.calls)
+    results = []
+    for name, calls in rec.calls.items():
+        traced = {k: sum(e.count for e in events if k in e.key) for k in MASKRCNN_KERNELS[name]}
+        assert all(n == 2 for n in traced.values()), f"{name}: {traced} in a replay's trace"
+        ms = sum(e.device_time_total for e in events
+                 if any(k in e.key for k in MASKRCNN_KERNELS[name])) / 1e3
+        shapes = [_maskrcnn_call_check(name, args, out) for args, out in calls]
+        for (args, _), shape in zip(calls, shapes):
+            wrapper = nms_ops.nms if name == "nms" else mra.multiscale_roi_align
+            shape["wrapper_ms"] = cuda_ms(lambda: wrapper(*args), 10)
+        err = max(shape.pop("gap") for shape in shapes)
+        b = bounds[name]
+        row = {"name": name, "route": "cuda", "source": "happypose_tpu_torch/csrc/mask_rcnn_ops.cu",
+               "kernels": list(MASKRCNN_KERNELS[name]),
+               "replaces": None,  # new: the JAX package has no Mask R-CNN
+               "launches": launches[name],
+               "launches_by_path": {"maskrcnn frame (warm-up and capture)": launches[name]},
+               "replay_launches_traced": {"maskrcnn frame": traced},
+               # NMS: keeps index for index; RoIAlign: the largest gap over the largest feature
+               "max_abs_err": err,
+               # both calls of a frame: the kernels' device time in a replay's trace
+               "ms": ms,
+               "plain_ms": sum(s["plain_ms"] for s in shapes),
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+               "share_of_bound": b["bound_ms"] / ms,
+               "library_ms": None,  # no torchvision on the card
+               "shapes": shapes}
+        log(f"maskrcnn {name}: {ms:.4f} ms a frame in a replay ({traced}), bound "
+            f"{b['bound_ms']:.5f} ms ({b['bound_by']}: bytes {b['bytes_ms']:.5f}, operations "
+            f"{b['ops_ms']:.5f}), {100 * row['share_of_bound']:.2f}% of it; calls: "
+            + json.dumps(shapes))
+        results.append(row)
+    return results
+
+
 PHASE_SECONDS: dict = {}  # host seconds of each `phase_*` call, by function name
 T_START = time.perf_counter()
 
@@ -4430,6 +4638,7 @@ def main() -> None:
         graphed_training = phase_graphed_training(dev)
         launches.update(graphed_training["launches"])
         log("graphed training phase 42 figures: " + json.dumps(graphed_training["figures"]))
+    maskrcnn = phase_maskrcnn(dev)
     log("phase seconds, largest first: " + json.dumps(
         {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])}))
     log(card_line())  # again, so that a tail of the output keeps it beside the figures
@@ -4453,7 +4662,7 @@ def main() -> None:
         "share_of_bound": kernel["share_of_bound"],
         "library_ms": None,  # no single PyTorch call computes this function
         "shapes": kernel["shapes"],
-    }]}), flush=True)
+    }, *maskrcnn]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 
 

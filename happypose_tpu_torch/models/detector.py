@@ -51,10 +51,11 @@ class Bottleneck(nn.Module):
         return torch.relu(out + residual)
 
 
-class ResNet50FPN(nn.Module):
-    """ResNet50 backbone + FPN. Input [B, 3, H, W] -> ([P3..P7], C2)."""
+class ResNet50Trunk(nn.Module):
+    """ResNet50 (v1.5 bottlenecks): the trunk both detectors' pyramids share.
+    `trunk(x)`: input [B, 3, H, W] -> [C2, C3, C4, C5] (strides 4 to 32)."""
 
-    def __init__(self, fpn_channels: int = 256):
+    def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = _bn(64)
@@ -69,6 +70,21 @@ class ResNet50FPN(nn.Module):
                 inplanes = planes * 4
             stages.append(nn.Sequential(*blocks))
         self.stages = nn.ModuleList(stages)
+
+    def trunk(self, x: torch.Tensor):
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        feats = []
+        for stage in self.stages:
+            x = stage(x)
+            feats.append(x)
+        return feats
+
+
+class ResNet50FPN(ResNet50Trunk):
+    """ResNet50 backbone + FPN. Input [B, 3, H, W] -> ([P3..P7], C2)."""
+
+    def __init__(self, fpn_channels: int = 256):
+        super().__init__()
         c = fpn_channels
         self.lat3 = nn.Conv2d(512, c, 1)
         self.lat4 = nn.Conv2d(1024, c, 1)
@@ -80,12 +96,7 @@ class ResNet50FPN(nn.Module):
         self.p7 = nn.Conv2d(c, c, 3, 2, padding=1)
 
     def forward(self, x: torch.Tensor):
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        feats = []
-        for stage in self.stages:
-            x = stage(x)
-            feats.append(x)
-        c2, c3, c4, c5 = feats
+        c2, c3, c4, c5 = self.trunk(x)
         # top-down; jax.image.resize's "nearest" samples at half-pixel
         # centres, which is torch's "nearest-exact" (not "nearest") when the
         # ratio is not 2, as for 8x10 -> 15x20 at a 240x320 input
@@ -96,6 +107,31 @@ class ResNet50FPN(nn.Module):
         p6 = self.p6(p5)
         p7 = self.p7(torch.relu(p6))
         return [p3, p4, p5, p6, p7], c2
+
+
+class ResNet50FPNMaxPool(ResNet50Trunk):
+    """The same trunk with Mask R-CNN's pyramid (torchvision's
+    `resnet_fpn_backbone` with `LastLevelMaxPool`): a lateral 1x1 and an
+    output 3x3 at C2-C5, a nearest-neighbour top-down path (torchvision's
+    "nearest"), and P6 = P5 subsampled by a 1x1 max-pool of stride 2.
+    Input [B, 3, H, W] -> [P2, P3, P4, P5, P6]."""
+
+    def __init__(self, fpn_channels: int = 256):
+        super().__init__()
+        c = fpn_channels
+        for lvl, cin in ((2, 256), (3, 512), (4, 1024), (5, 2048)):
+            self.add_module(f"lat{lvl}", nn.Conv2d(cin, c, 1))
+            self.add_module(f"smooth{lvl}", nn.Conv2d(c, c, 3, padding=1))
+
+    def forward(self, x: torch.Tensor):
+        feats = self.trunk(x)
+        inner = self.lat5(feats[3])
+        out = [self.smooth5(inner)]
+        for lvl in (4, 3, 2):
+            lateral = getattr(self, f"lat{lvl}")(feats[lvl - 2])
+            inner = lateral + F.interpolate(inner, size=lateral.shape[-2:], mode="nearest")
+            out.insert(0, getattr(self, f"smooth{lvl}")(inner))
+        return out + [F.max_pool2d(out[-1], 1, 2, 0)]
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,8 @@
 dicts (e.g. carried over from Flax by `utils.weights_from_jax`), or read
 from a run directory: `config.json` (the JAX package's keys: `backbone`,
 `render_size`, `bf16` for a pose model; `fpn_channels`, `image_size` for a
-detector) beside the weights, in whichever of two formats the directory
+detector; `"kind": "mask_rcnn"` and `models.mask_rcnn.config_to_dict`'s
+settings for a Mask R-CNN) beside the weights, in whichever of two formats the directory
 holds (`read_state_dict`):
 - the port's: `state_dict.pt` (`torch.save` of a state dict, read with
   `weights_only=True`; `save_run_dir` writes it; a training run,
@@ -37,7 +38,9 @@ from happypose_tpu_torch.inference.detector import Detector
 from happypose_tpu_torch.inference.pose_estimator import PoseEstimator
 from happypose_tpu_torch.inference.types import InferenceConfig
 from happypose_tpu_torch.meshes.database import MeshDataBase
+from happypose_tpu_torch.models import mask_rcnn
 from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+from happypose_tpu_torch.models.mask_rcnn import MaskRCNN, MaskRCNNConfig
 from happypose_tpu_torch.models.pose_predictor import (
     PosePredictor,
     PosePredictorConfig,
@@ -268,7 +271,7 @@ def load_named_model(
 
 
 def load_detector(
-    cfg: Union[DetectorConfig, str, Path],
+    cfg: Union[DetectorConfig, MaskRCNNConfig, str, Path],
     n_classes: Optional[int] = None,
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     seed: int = 0,
@@ -277,27 +280,34 @@ def load_detector(
 ) -> Detector:
     """Build a `Detector` on `device` that runs at `image_size` (H, W).
 
-    `cfg` is a `DetectorConfig`, or a run directory with `n_classes` (as the
-    JAX package's `load_detector(run_dir, n_classes)`): its `config.json`
-    gives `fpn_channels` (default 64) and `image_size`, its `state_dict.pt`
-    or the JAX package's `checkpoint.msgpack` the weights. Otherwise weights are fresh and seeded from `seed` unless
-    `state_dict` gives them, e.g. from
+    `cfg` is a `DetectorConfig` (the port's FCOS), a `MaskRCNNConfig`, or a
+    run directory with `n_classes` (as the JAX package's
+    `load_detector(run_dir, n_classes)`): its `config.json` gives FCOS's
+    `fpn_channels` (default 64) and `image_size`, or with
+    `"kind": "mask_rcnn"` a Mask R-CNN's settings (`n_classes + 1` classes
+    where it gives none); its `state_dict.pt` or the JAX package's
+    `checkpoint.msgpack` the weights. Otherwise weights are fresh and
+    seeded from `seed` unless `state_dict` gives them, e.g. from
     `utils.weights_from_jax.detector_state_dict`. The detector's class
-    indices must be the mesh database's object ids."""
-    if not isinstance(cfg, DetectorConfig):
+    indices (Mask R-CNN's minus the background) must be the mesh
+    database's object ids."""
+    if not isinstance(cfg, (DetectorConfig, MaskRCNNConfig)):
         run_dir = Path(cfg)
         if n_classes is None:
             raise ValueError("a detector run directory needs n_classes")
-        fpn_channels = 64
+        c: Dict[str, object] = {}
         cfg_file = run_dir / "config.json"
         if cfg_file.exists():
             c = json.loads(cfg_file.read_text())
-            fpn_channels = int(c.get("fpn_channels", fpn_channels))
-            if c.get("image_size"):
-                image_size = tuple(int(v) for v in c["image_size"])
-        cfg = DetectorConfig(n_classes=n_classes, fpn_channels=fpn_channels)
+        if c.get("image_size"):
+            image_size = tuple(int(v) for v in c["image_size"])
+        if c.get("kind") == mask_rcnn.KIND:
+            cfg = mask_rcnn.config_from_dict({"n_classes": n_classes + 1, **c})
+        else:
+            cfg = DetectorConfig(n_classes=n_classes, fpn_channels=int(c.get("fpn_channels", 64)))
         state_dict = read_state_dict(run_dir)
-    model = FCOSDetector(cfg).init_weights(torch.Generator().manual_seed(seed))
+    kind = MaskRCNN if isinstance(cfg, MaskRCNNConfig) else FCOSDetector
+    model = kind(cfg).init_weights(torch.Generator().manual_seed(seed))
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return Detector(model.to(device), image_size=image_size)

@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
                  "scripts.run_accuracy_demo", "parallel", "parallel.distributed",
                  "parallel.mesh", "parallel.collectives", "lib3d", "meshes", "datasets",
                  "inference", "evaluation", "utils.flax_msgpack",
-                 "utils.cuda_graphs"):
+                 "utils.cuda_graphs", "models.mask_rcnn", "ops.nms",
+                 "ops.multiscale_roi_align"):
         assert f"happypose_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
