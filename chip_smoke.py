@@ -42,7 +42,8 @@ Phases (any failure raises, so the exit code is nonzero):
    seeded, on the synthetic frame cropped and resized to 240x320 by
    `crop_resize_to_aspect`. Raw outputs against the same model on the
    CPU, `detector_postprocess` on the card against the CPU's on the same
-   raw outputs; forward and post-processing timed warm.
+   raw outputs (its NMS `ops.nms`'s kernels: one wrapper launch a call);
+   forward and post-processing timed warm.
 7. `load_named_model("cosypose-RGB")` at full width (WideResNet34, 240x320
    RGB renders, 1 coarse + 4 refiner iterations) with seeded weights and
    perturbed pose heads, on the frame's 2 boxes: the launch counter of a
@@ -53,7 +54,9 @@ Phases (any failure raises, so the exit code is nonzero):
 8. Detector -> box mapping (as the evaluation runner maps them back to the
    frame) -> cosypose-RGB, on the card: every detection gets a finite pose.
    Seeded detector weights score ~0.01, under the default threshold of
-   0.3, so this runs at threshold 0 with one instance per class.
+   0.3, so this runs at threshold 0 with one instance per class. The
+   detector's graph holds its NMS: `ops.nms` counts the first frame's
+   warm-up and capture (2) and no launch for the frames that replay it.
 9. cosypose-RGB cut to WideResNet18, 64x128 renders and 2 refiner
    iterations, on the card and on the CPU: final poses must agree.
 10. RGB-D: the frame with its depth image (the z-merge of the two
@@ -109,7 +112,8 @@ Phases (any failure raises, so the exit code is nonzero):
    detector` with all three models read from run directories of the port
    (`config.json` + `state_dict.pt`, seeded weights, threshold 0), and
    `run_detection_eval` on the same split (COCO json read back, `n_gt` =
-   the instances written).
+   the instances written). Each CLI's detector graph holds its NMS:
+   `ops.nms` counts its warm-up and capture (2 a CLI), its replays none.
 18. `run_eval` cut to 64x128 renders, a 72-rotation grid, top-2, 2
    iterations and 1 frame, `--device cuda` against `--device cpu`.
 19. `run_inference_on_example --make-example` on the card: the three
@@ -1169,6 +1173,7 @@ def phase_detector(dev) -> None:
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.models.detector import DetectorConfig, detector_postprocess
+    from happypose_tpu_torch.ops import nms as nms_ops
     from happypose_tpu_torch.utils.load_model import load_detector
 
     cfg = DetectorConfig(n_classes=2)
@@ -1185,13 +1190,16 @@ def phase_detector(dev) -> None:
             err = ((o - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
             log(f"  {f} {tuple(o.shape)}: max abs diff / max |cpu| = {err:.3g}")
             assert err <= RAW_RTOL, f"{f}: {err}"
+        nms_ops.launches = 0
         post = detector_postprocess(out, score_threshold=0.0)
         post_cpu = detector_postprocess(type(out)(*(t.cpu() for t in out)), score_threshold=0.0)
         n = _match_detections({k: v.cpu() for k, v in post.items()}, post_cpu, 0)
         log(f"  postprocess on the card = on the CPU, same raw outputs: {n} detections")
         t_fwd = [_timed(lambda: gpu.model(x))[1] for _ in range(6)][1:]
         t_post = [_timed(lambda: detector_postprocess(out))[1] for _ in range(6)][1:]
-    log(f"detector: warm forward s {_fmt(t_fwd)}; postprocess s {_fmt(t_post)}")
+    log(f"detector: warm forward s {_fmt(t_fwd)}; postprocess s {_fmt(t_post)}; "
+        f"ops.nms launches {nms_ops.launches} (expected 7, one a call)")
+    assert nms_ops.launches == 7, f"ops.nms launches {nms_ops.launches} != 7"
 
 
 def phase_cosypose(dev) -> int:
@@ -1253,6 +1261,7 @@ def phase_chained(dev) -> int:
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.models.detector import DetectorConfig
+    from happypose_tpu_torch.ops import nms as nms_ops
     from happypose_tpu_torch.ops import rasterizer_fused as rf
     from happypose_tpu_torch.utils.load_model import load_detector
 
@@ -1272,17 +1281,22 @@ def phase_chained(dev) -> int:
             obj_ids=det.obj_ids.cpu().numpy(), scores=det.scores.cpu().numpy(), device=dev,
         )
 
+    nms_ops.launches = 0
     detect()  # warm-up
+    nms_first = nms_ops.launches
     est.run_inference_pipeline(obs, detect())
     rf.launches = 0
     det, t_det = _timed(detect)
     res, t_pose = _timed(lambda: est.run_inference_pipeline(obs, det))
     launches = rf.launches
+    nms_replays = nms_ops.launches - nms_first
     final = res["final"]
     boxes = np.array2string(det.boxes.cpu().numpy(), precision=1, separator=", ")
     log(f"chained: {det.n_rows} detections, boxes {boxes}, "
         f"labels {det.obj_ids.tolist()}; detector {t_det:.4f} s, poses {t_pose:.4f} s; "
-        f"raster_fused launches {launches}")
+        f"raster_fused launches {launches}; ops.nms launches {nms_first} in the first "
+        f"detection (warm-up and capture, expected 2), {nms_replays} in the two replays")
+    assert (nms_first, nms_replays) == (2, 0), f"ops.nms launches {nms_first}, {nms_replays}"
     assert det.n_rows >= 1 and torch.isfinite(det.boxes).all()
     assert final.poses.shape == (det.n_rows, 4, 4) and torch.isfinite(final.poses).all()
     assert bool(final.valid.all())
@@ -1642,6 +1656,7 @@ def phase_detector_eval(dev, root: Path, data: dict) -> int:
     run directories, and `run_detection_eval` on the same split."""
     from happypose_tpu_torch.evaluation.coco_export import load_coco_json
     from happypose_tpu_torch.models.detector import DetectorConfig, FCOSDetector
+    from happypose_tpu_torch.ops import nms as nms_ops
     from happypose_tpu_torch.ops import rasterizer_fused as rf
     from happypose_tpu_torch.scripts import run_detection_eval, run_eval as run_eval_cli
     from happypose_tpu_torch.utils import load_model as lm
@@ -1657,34 +1672,38 @@ def phase_detector_eval(dev, root: Path, data: dict) -> int:
                               {"fpn_channels": det_cfg.fpn_channels, "image_size": [240, 320]})
 
     out_dir = root / "eval_cosypose"
-    rf.launches = 0
+    rf.launches = nms_ops.launches = 0
     res, t_all = _timed(lambda: run_eval_cli.run([
         "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
         "--model", "cosypose-RGB", "--checkpoints", str(ckpt), "--detections", "detector",
         "--detector-run", str(det_run), "--detection-th", "0.0", "--out-dir", str(out_dir)]))
-    launches = rf.launches
+    launches, nms_eval = rf.launches, nms_ops.launches
     preds, summary = res["predictions"], res["summary"]
     n_det = [len(r["poses"]) for r in preds]
     expected = _runner_launches((D, _frame_launches(spec.inference_cfg, D)) for D in n_det)
     times = summary["frame_seconds"]
     log(f"run_eval cosypose-RGB, detector in front (threshold 0), run directories: "
         f"{len(preds)} frames, detections a frame {n_det}; raster_fused launches {launches}, "
-        f"expected {expected}; first frame {times[0]:.3f} s, warm s/frame {_fmt(times[1:])}; "
+        f"expected {expected}; ops.nms launches {nms_eval} (expected 2: the detector graph's "
+        f"warm-up and capture); first frame {times[0]:.3f} s, warm s/frame {_fmt(times[1:])}; "
         f"the whole call with loading {t_all:.2f} s; n_matched {summary['n_matched']} of "
         f"{summary['n_gt']}")
     assert len(preds) == N_EVAL_FRAMES and min(n_det) >= 1 and max(n_det) <= 8
     assert launches == expected, f"kernel launches {launches} != {expected}"
+    assert nms_eval == 2, f"ops.nms launches {nms_eval} != 2"
     assert all(np.isfinite(r["poses"]).all() for r in preds)
     assert (out_dir / "preds_rank0.csv").exists() and summary["n_gt"] == data["n_instances"]
 
     det_out = root / "eval_detector"
+    nms_ops.launches = 0
     _, t_det = _timed(lambda: run_detection_eval.main([
         "--split-dir", str(data["split"]), "--models-dir", str(data["models"]),
         "--detector-run", str(det_run), "--detection-th", "0.0", "--out-dir", str(det_out)]))
     det_summary = json.loads((det_out / "summary_rank0.json").read_text())
     coco = load_coco_json(det_out / "detections_rank0.json")
     log(f"run_detection_eval: {t_det:.2f} s, {len(coco)} detections in the COCO json, summary "
-        f"{det_summary}")
+        f"{det_summary}; ops.nms launches {nms_ops.launches} (expected 2)")
+    assert nms_ops.launches == 2, f"ops.nms launches {nms_ops.launches} != 2"
     assert det_summary["n_gt"] == data["n_instances"] and len(coco) >= N_EVAL_FRAMES
     assert all(len(r["bbox"]) == 4 and r["category_id"] in (1, 2, 3) for r in coco)
     return launches
@@ -3915,11 +3934,12 @@ def _in_turns(eager, graph, n=GRAPH_REPEATS):
 
 
 def _eager_detector(detector):
-    """The same detector with its forward run eagerly (no graph)."""
+    """The same detector with its forward and detections run eagerly (no
+    graph)."""
     from happypose_tpu_torch.inference.detector import Detector
 
     eager = Detector(detector.model, image_size=detector.image_size)
-    eager._forward = eager.model
+    eager._graphs = lambda key, fn, args, captured=(): fn(*args)  # each call plain
     return eager
 
 
@@ -4003,9 +4023,9 @@ def _graphs_pipeline(dev, kernel, figures, launches, traced):
         for obs in (obs_a, obs_b):
             with torch.inference_mode():
                 raw = eager_detector.model(obs.rgb)
-            out = detector._forward(obs.rgb)
+            out, _ = detector._detect(obs.rgb, 0.5, 32)
             det_err = max([det_err] + [float((x - y).abs().max()) for x, y in zip(out, raw)])
-        assert len(detector._forward_graphs) == 1, len(detector._forward_graphs)
+        assert len(detector._graphs) == 1, len(detector._graphs)
         assert det_err <= GRAPH_ATOL, f"detector forward: graph vs eager {det_err}"
 
         def run(frame):
@@ -4022,7 +4042,7 @@ def _graphs_pipeline(dev, kernel, figures, launches, traced):
         _graph_check("bench --pipeline (detector -> megapose-RGB, D = 4)", est, expected,
                      figures, launches, traced, run, run_eager, frames)
         figures["detector_forward_max_abs_diff"] = det_err
-        figures["detector_pool_bytes"] = detector._forward_graphs.pool_bytes()
+        figures["detector_pool_bytes"] = detector._graphs.pool_bytes()
 
         # D = 2, 4, 2 on one estimator: one pool, each result the eager one's
         order, kept, pools, eager = [], None, [], {}
@@ -4063,14 +4083,17 @@ def _graphs_pipeline(dev, kernel, figures, launches, traced):
 
 
 def _graphs_cosypose(dev, kernel, figures, launches, traced):
-    """Detector (its graph) -> cosypose-RGB (the frame's graph) at full
-    width on the 480x640 frame against the eager path, captured on one
-    seeded frame and replayed on another."""
+    """Detector (its graph, NMS included) -> cosypose-RGB (the frame's
+    graph) at full width on the 480x640 frame against the eager path,
+    captured on one seeded frame and replayed on another. The detector's
+    graph counts `ops.nms`'s warm-up and capture on the first frame (2)
+    and nothing on the second."""
     from happypose_tpu_torch.evaluation.prediction_runner import boxes_to_frame
     from happypose_tpu_torch.inference.types import DetectionBatch, ObservationBatch
     from happypose_tpu_torch.meshes import io
     from happypose_tpu_torch.meshes.database import MeshDataBase
     from happypose_tpu_torch.models.detector import DetectorConfig
+    from happypose_tpu_torch.ops import nms as nms_ops
     from happypose_tpu_torch.utils.load_model import load_detector
 
     db = debug_mesh_db(MeshDataBase, io)
@@ -4088,10 +4111,16 @@ def _graphs_cosypose(dev, kernel, figures, launches, traced):
                                  K[0].cpu().numpy()),
             obj_ids=found.obj_ids.cpu().numpy(), scores=found.scores.cpu().numpy(), device=dev)
 
+    nms_graphed = []
     for obs in frames:
-        det, det_g = detect(eager_detector, obs), detect(detector, obs)
+        det = detect(eager_detector, obs)
+        n0 = nms_ops.launches
+        det_g = detect(detector, obs)
+        nms_graphed.append(nms_ops.launches - n0)
         assert torch.equal(det.boxes, det_g.boxes) and torch.equal(det.obj_ids, det_g.obj_ids), \
             "the graphed detector found other boxes"
+    figures["detector_nms_launches"] = nms_graphed  # the first frame, the second
+    assert nms_graphed == [2, 0], f"the graphed detector's ops.nms launches {nms_graphed}"
 
     with _KernelInputs() as inputs:
         _graph_check(f"detector -> cosypose-RGB (D = {det.n_rows})", est,

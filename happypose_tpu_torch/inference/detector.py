@@ -2,18 +2,20 @@
 (PyTorch port of `happypose_tpu/inference/detector.py`): score threshold,
 label mapping, one_instance_per_class filtering, instance-id assignment.
 The model is the port's FCOS (`models.detector.FCOSDetector`) or Mask
-R-CNN (`models.mask_rcnn.MaskRCNN`). Its forward runs as one CUDA graph per
-image shape (`_forward`, the counterpart of the JAX wrapper's jitted
-forward). FCOS's postprocess, whose NMS reads to the host, runs after it;
-Mask R-CNN's graph holds its whole forward, NMS and mask paste included.
-Each model's post-processing is chosen once, when the wrapper is made
-(`_postprocess`). The host then reads the detections, makes the rows (the
-same code for both models) and reads the kept rows' masks. They run under the spans
-`detector.forward` and `detector.postprocess` (the read-back and the rows
-included)."""
+R-CNN (`models.mask_rcnn.MaskRCNN`). Its forward and its fixed-slot
+detections, NMS included, run as one CUDA graph per image shape, NMS
+threshold and budget (`_detect`, the counterpart of the JAX wrapper's
+jitted forward): FCOS's `detector_postprocess` follows its forward there,
+and Mask R-CNN's forward holds its own NMS and mask paste; that body is
+the one place the two models are told apart. The host then applies the
+score threshold, reads the detections, makes the rows and reads the kept
+rows' masks, the same code for both models. They run under
+the spans `detector.forward` (the replay) and `detector.postprocess` (the
+threshold, the read-back and the rows)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -35,28 +37,37 @@ class Detector:
                  image_size: Tuple[int, int] = (240, 320)):
         self.model = model.eval()
         self.image_size = image_size
-        self._forward_graphs = GraphCache("detector")
-        self._postprocess = model.postprocess if isinstance(model, MaskRCNN) \
-            else self._fcos_postprocess
+        self._graphs = GraphCache("detector")
 
-    @staticmethod
-    def _fcos_postprocess(out: DetectorOutputs, score_threshold: float,
-                          iou_threshold: Optional[float] = None,
-                          max_detections: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """FCOS's `detector_postprocess`, its NMS at 0.5 and 32 detections
-        unless given."""
-        return detector_postprocess(
-            out,
-            score_threshold=score_threshold,
-            iou_threshold=0.5 if iou_threshold is None else iou_threshold,
-            max_detections=32 if max_detections is None else max_detections,
-        )
+    def _detect(self, rgb: torch.Tensor, iou_threshold: Optional[float] = None,
+                max_detections: Optional[int] = None
+                ) -> Tuple[Union[DetectorOutputs, MaskRCNNOutputs], Dict[str, torch.Tensor]]:
+        """(the forward's outputs, the detections: boxes, scores, labels,
+        valid (the NMS's flag) and masks, [B, budget, ...] each, with no
+        score threshold), through the graph of `rgb`'s shape and the NMS's
+        threshold and budget, which the graph bakes in (on a CPU tensor:
+        the same path with a plain call). FCOS's body runs
+        `detector_postprocess`, looked up at capture, at the call's
+        settings (0.5 and 32 unless given); Mask R-CNN's forward holds its
+        NMS, at the settings of `MaskRCNN.nms_settings`."""
+        model = self.model
+        if isinstance(model, MaskRCNN):
+            iou, budget = model.nms_settings(iou_threshold)
 
-    def _forward(self, rgb: torch.Tensor) -> Union[DetectorOutputs, MaskRCNNOutputs]:
-        """`self.model(rgb)` through its graph of `rgb`'s shape (on a CPU
-        tensor: the same path with a plain call)."""
-        key = ("forward", self.model.training, storage_of(self.model))
-        return self._forward_graphs(key, self.model, (rgb,), captured=(self.model,))
+            def body(x):
+                out = model(x)
+                return out, {k: getattr(out, k)
+                             for k in ("boxes", "scores", "labels", "valid", "masks")}
+        else:
+            iou = 0.5 if iou_threshold is None else iou_threshold
+            budget = 32 if max_detections is None else max_detections
+
+            def body(x):
+                out = model(x)
+                return out, detector_postprocess(out, score_threshold=-math.inf,
+                                                  iou_threshold=iou, max_detections=budget)
+        key = ("detect", iou, budget, model.training, storage_of(model))
+        return self._graphs(key, body, (rgb,), captured=(model,))
 
     @torch.inference_mode()
     def get_detections(
@@ -73,38 +84,32 @@ class Detector:
         background), used as object ids. `max_detections` and
         `iou_threshold` are the NMS's (FCOS: 32 and 0.5 by default); Mask
         R-CNN's NMS runs at its config's threshold, so it keeps at most the
-        first `max_detections` of its config's `detections_per_img` and
-        raises on another threshold. Its masks are at the frame's size."""
+        first `max_detections` of its config's `detections_per_img` (those
+        a smaller budget keeps) and raises on another threshold. Its masks
+        are at the frame's size. Rows come in (image, slot) order."""
         with annotate("detector.forward"):
-            out = self._forward(observation.rgb)
+            out, post = self._detect(observation.rgb, iou_threshold, max_detections)
         with annotate("detector.postprocess"):
-            post = self._postprocess(out, detection_th, iou_threshold=iou_threshold,
-                                     max_detections=max_detections)
-            boxes, scores, labels, valid = (
-                post[k].cpu().numpy() for k in ("boxes", "scores", "labels", "valid")
-            )
+            D = max_detections
+            valid = (post["valid"] & (post["scores"] > detection_th))[:, :D].cpu().numpy()
+            boxes, scores, labels = (post[k][:, :D].cpu().numpy()
+                                     for k in ("boxes", "scores", "labels"))
+            im, slot = np.nonzero(valid)
+            if one_instance_per_class and len(im):
+                # per (image, class) the best score, the lowest slot among equals
+                lab = labels[im, slot]
+                order = np.lexsort((slot, -scores[im, slot], lab, im))
+                im_o, lab_o = im[order], lab[order]
+                first = np.r_[True, (im_o[1:] != im_o[:-1]) | (lab_o[1:] != lab_o[:-1])]
+                kept = np.sort(order[first])
+                im, slot = im[kept], slot[kept]
             device = observation.rgb.device
-
-            rows_im, rows_slot = [], []
-            for b in range(boxes.shape[0]):
-                keep = np.where(valid[b])[0]
-                if one_instance_per_class:
-                    # keep the best-scored instance per class, in slot order
-                    best: Dict[int, int] = {}
-                    for i in keep:
-                        c = int(labels[b, i])
-                        if c not in best or scores[b, i] > scores[b, best[c]]:
-                            best[c] = i
-                    keep = np.asarray(sorted(best.values()), int)
-                rows_im += [b] * len(keep)
-                rows_slot += [int(i) for i in keep]
-            if not rows_im:
+            if not len(im):
                 det = DetectionBatch.from_numpy(
                     boxes=np.zeros((0, 4), np.float32), obj_ids=np.zeros((0,), np.int64),
                     device=device,
                 )
                 return det, {"masks": np.zeros((0, 1, 1), bool), "outputs": out}
-            im, slot = np.asarray(rows_im, np.int64), np.asarray(rows_slot, np.int64)
             masks = post["masks"][torch.from_numpy(im).to(post["masks"].device),
                                   torch.from_numpy(slot).to(post["masks"].device)]
             det = DetectionBatch.from_numpy(

@@ -15,12 +15,12 @@ import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from happypose_tpu_torch.models.backbones import _bn, set_bn_axis_name
+from happypose_tpu_torch.ops.nms import nms
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 _CLS_PRIOR_BIAS = -4.6  # focal-loss prior: sigmoid(-4.6) ~ 0.01
@@ -256,39 +256,6 @@ def decode_boxes(locations: torch.Tensor, box_reg: torch.Tensor) -> torch.Tensor
     return torch.stack([u - l, v - t, u + r, v + b], dim=-1)
 
 
-def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
-    """[..., N, N] IoU of boxes [..., N, 4]."""
-    area = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0) * torch.clamp(
-        boxes[..., 3] - boxes[..., 1], min=0
-    )
-    lo = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
-    hi = torch.minimum(boxes[..., :, None, 2:], boxes[..., None, :, 2:])
-    wh = torch.clamp(hi - lo, min=0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = area[..., :, None] + area[..., None, :] - inter
-    return inter / torch.clamp(union, min=1e-9)
-
-
-def _greedy_scan(
-    suppress: np.ndarray, order: np.ndarray, max_out: int
-) -> Tuple[np.ndarray, np.ndarray]:
-    """The greedy NMS scan of one image on the host: visit candidates in
-    `order`; a live one is kept (up to `max_out`) and kills the candidates
-    its row of `suppress` [N, N] marks. Unused slots hold index 0, invalid."""
-    alive = np.ones(suppress.shape[0], bool)
-    keep = np.zeros(max_out, np.int64)
-    kv = np.zeros(max_out, bool)
-    nk = 0
-    for cand in order:
-        if nk == max_out:
-            break
-        if alive[cand]:
-            keep[nk], kv[nk] = cand, True
-            nk += 1
-            alive &= ~suppress[cand]
-    return keep, kv
-
-
 def nms_fixed(
     boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
     iou_threshold: float = 0.5, max_out: int = 32,
@@ -296,20 +263,20 @@ def nms_fixed(
     """Class-aware greedy NMS over a fixed candidate budget, batched over
     leading dims: boxes [..., N, 4], scores / labels [..., N].
 
-    Returns (keep_idx [..., max_out], keep_valid [..., max_out]). The
-    suppression matrix is built on the device in one pass and copied to
-    the host once; the scan there is the JAX `fori_loop`'s, in the order of
-    a stable descending sort of the scores (ties: lowest index first)."""
-    lead = boxes.shape[:-2]
-    N = boxes.shape[-2]
-    suppress = (_iou_matrix(boxes) > iou_threshold) & (labels[..., :, None] == labels[..., None, :])
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    suppress = suppress.reshape(-1, N, N).cpu().numpy()
-    order = order.reshape(-1, N).cpu().numpy()
-    scans = [_greedy_scan(s, o, max_out) for s, o in zip(suppress, order)]
-    keep = torch.from_numpy(np.stack([k for k, _ in scans])).reshape(*lead, max_out)
-    kv = torch.from_numpy(np.stack([v for _, v in scans])).reshape(*lead, max_out)
-    return keep.to(boxes.device), kv.to(boxes.device)
+    Returns (keep_idx [..., max_out], keep_valid [..., max_out]): the JAX
+    `fori_loop`'s scan, in the order of a stable descending sort of the
+    scores (ties: lowest index first); unused slots hold index 0, invalid.
+    It is `ops.nms` with every candidate valid and the labels as groups
+    (the card's kernels on a CUDA tensor, `nms_reference` on a CPU one;
+    nothing is read to the host). Its IoU is the JAX package's without the
+    clamps, in the same float operations and order: on boxes with x2 >= x1
+    and y2 >= y1 the area clamps never fire, and the union's (at least
+    1e-9) only acts where both areas are under 1e-9 px^2: two zero-area
+    boxes give NaN > t and 0 > t, both false. FCOS decodes positive
+    distances (exp(.) * stride), so its boxes meet that condition."""
+    keep, kv = nms(boxes, scores, labels, torch.ones_like(scores, dtype=torch.bool),
+                   iou_threshold, max_out)
+    return torch.where(kv, keep, 0), kv
 
 
 def detector_postprocess(

@@ -422,21 +422,12 @@ class MaskRCNN(nn.Module):
             scores=scores, labels=labels, valid=valid, det_pair=det_pair,
             mask_logits=mask_logits.view(B, D, *mask_logits.shape[-2:]), masks=masks)
 
-    def postprocess(self, out: MaskRCNNOutputs, score_threshold: float = 0.0,
-                    iou_threshold: Optional[float] = None,
-                    max_detections: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """The detections in `detector_postprocess`'s form: boxes, scores,
-        labels, valid (the NMS's flag and the score over the threshold) and
-        masks, [B, D, ...] each. `max_detections` keeps the first slots: the
-        NMS's first kept, as a smaller budget would keep them. The NMS's
-        threshold is the config's (`box_nms_thresh`, inside the graph);
-        another `iou_threshold` raises."""
-        if iou_threshold is not None and iou_threshold != self.cfg.box_nms_thresh:
+    def nms_settings(self, iou_threshold: Optional[float] = None) -> Tuple[float, int]:
+        """The box stage's NMS threshold and budget, which the forward runs
+        at (`box_nms_thresh`, `detections_per_img`); another `iou_threshold`
+        raises."""
+        cfg = self.cfg
+        if iou_threshold is not None and iou_threshold != cfg.box_nms_thresh:
             raise ValueError(f"Mask R-CNN runs its NMS at box_nms_thresh "
-                             f"{self.cfg.box_nms_thresh} (its config), not {iou_threshold}")
-        D = out.boxes.shape[1] if max_detections is None else max_detections
-        return {"boxes": out.boxes[:, :D], "scores": out.scores[:, :D],
-                "labels": out.labels[:, :D],
-                "valid": (out.valid & (out.scores > score_threshold))[:, :D],
-                "masks": out.masks[:, :D]}
-
+                             f"{cfg.box_nms_thresh} (its config), not {iou_threshold}")
+        return cfg.box_nms_thresh, cfg.detections_per_img

@@ -11,9 +11,12 @@ They are visited in the order of a stable descending sort of the scores
 (ties: the lowest index first); a live one is kept and suppresses the
 later ones of its group whose IoU with it is over the threshold. The
 first `max_out` kept come back, in that order, as indices into the
-candidates with a validity flag (unused slots: index 0, invalid). IoUs are
-computed from the boxes as they are (torchvision's `batched_nms` offsets
-the boxes by group instead, which rounds larger coordinates).
+candidates with a validity flag. An unused slot holds the index of the
+first candidate in scan order (the highest-scored), its flag false: Mask
+R-CNN masks every slot by the flag, and `models.detector.nms_fixed` maps
+the index to 0, as JAX's does. IoUs are computed from the boxes as they
+are (torchvision's `batched_nms` offsets the boxes by group instead, which
+rounds larger coordinates).
 
 `nms` sends a CUDA tensor to the kernels and a CPU tensor to
 `nms_reference`. No fallback: a CUDA tensor launches the kernels or

@@ -16,8 +16,8 @@ resolution; the colours are jittered unless `--no-augment`. The split's
 uint8 frames are staged on `--device` (default `cuda`) once. On the card
 the step is one CUDA graph replay (`training/trainer.py`), the batch copied
 into its inputs, and the evaluation's forward another (the detector's
-forward graph of `inference/detector.py`); the postprocess, whose NMS
-reads to the host, runs after it.
+forward graph of `inference/detector.py`); the postprocess, its NMS on
+`ops.nms`, runs after it.
 
 Usage:
   python -m happypose_tpu_torch.scripts.run_detector_training \
@@ -43,7 +43,7 @@ from happypose_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 # The evaluation's forward graphs, one cache a model (JAX's jitted
-# `eval_forward`), keyed as `inference.detector.Detector._forward`'s
+# `eval_forward`), keyed by the model's mode and its weights' storage
 _eval_graphs: "weakref.WeakKeyDictionary[torch.nn.Module, GraphCache]" = \
     weakref.WeakKeyDictionary()
 

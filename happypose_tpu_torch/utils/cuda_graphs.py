@@ -3,7 +3,7 @@ JAX package's jit caches (`inference/pose_estimator.py`: the stage programs
 `_coarse_logits_fn` and `_refine_fn`, through which every chunk of pose
 updates goes (`forward_refiner`, CosyPose's coarse model),
 `forward_coarse_jit`, `run_inference_pipeline_jit`;
-`inference/detector.py`: the detector's forward; `training/trainer.py`:
+`inference/detector.py`: the detector's forward and NMS; `training/trainer.py`:
 the train step; `training/synth_data.py`: the synthetic batch; the
 training scripts' eval forwards).
 

@@ -319,14 +319,14 @@ def test_detector_graphed_forward_equals_eager():
         torch.Generator().manual_seed(0))
     detector = Detector(model, image_size=(64, 80))
     rgb = torch.from_numpy(np.random.RandomState(0).rand(2, 3, 64, 80).astype(np.float32))
-    out = detector._forward(rgb)
+    out, _ = detector._detect(rgb, 0.5, 32)
     with torch.inference_mode():
         ref = model(rgb)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    detector._forward(rgb[:1])
-    detector._forward(rgb)
-    assert len(detector._forward_graphs) == 2
+    detector._detect(rgb[:1], 0.5, 32)
+    detector._detect(rgb, 0.5, 32)
+    assert len(detector._graphs) == 2
 
 
 def test_jit_pipeline_refuses_a_device_mesh(world):

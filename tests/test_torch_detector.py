@@ -19,8 +19,10 @@ from happypose_tpu.inference.detector import Detector as JaxDetector
 from happypose_tpu.inference.types import ObservationBatch as JaxObservation
 from happypose_tpu.models import detector as jd
 from happypose_tpu_torch.datasets.augmentations import crop_resize_to_aspect
+from happypose_tpu_torch.inference.detector import Detector
 from happypose_tpu_torch.inference.types import ObservationBatch
 from happypose_tpu_torch.models import detector as td
+from happypose_tpu_torch.utils import profiling
 from happypose_tpu_torch.utils.load_model import load_detector
 from happypose_tpu_torch.utils.weights_from_jax import detector_state_dict
 from test_torch_models import perturb
@@ -100,15 +102,22 @@ def _nms_case_tied(seed=3, n=64):
     return boxes, scores, labels
 
 
-@pytest.mark.parametrize("case", ["test_detector", "tied"])
+@pytest.mark.parametrize("case", ["test_detector", "tied", "best_not_first"])
 def test_nms_fixed_matches_jax(case):
     """The same kept indices in the same slots, unused slots 0 and invalid;
-    `max_out` cuts the tied case."""
+    `max_out` cuts the tied case. In the last case the best score is not
+    at index 0 and two slots stay unused: they hold 0, not the best's
+    index (`ops.nms`'s)."""
     if case == "test_detector":  # tests/test_detector.py::test_nms_fixed
         boxes = np.asarray([[0, 0, 10, 10], [1, 1, 11, 11], [50, 50, 60, 60], [0, 0, 10, 10]],
                            np.float32)
         scores = np.asarray([0.9, 0.8, 0.7, 0.6], np.float32)
         labels = np.asarray([0, 0, 0, 1])
+        max_out = 4
+    elif case == "best_not_first":
+        boxes = np.asarray([[0, 0, 10, 10], [1, 1, 11, 11], [50, 50, 60, 60]], np.float32)
+        scores = np.asarray([0.5, 0.9, 0.7], np.float32)
+        labels = np.asarray([0, 0, 0])
         max_out = 4
     else:
         boxes, scores, labels = _nms_case_tied()
@@ -121,6 +130,8 @@ def test_nms_fixed_matches_jax(case):
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     if case == "test_detector":
         assert set(tk.numpy()[tv.numpy()].tolist()) == {0, 2, 3}
+    elif case == "best_not_first":
+        assert tk.tolist() == [1, 2, 0, 0] and tv.tolist() == [True, True, False, False]
     else:
         assert tv.all() and len(np.unique(scores[tk.numpy()])) < max_out  # cut, with ties
 
@@ -197,6 +208,53 @@ def test_get_detections_matches_jax(detectors, raw, one_instance_per_class):
     boxes = np.asarray(jdet.boxes)
     probs = np.concatenate([_mask_probs(out, boxes[im == b][None])[0] for b in range(2)])
     _assert_masks_match(extra["masks"], jextra["masks"], probs)
+
+
+@pytest.mark.parametrize("one_instance_per_class", [False, True])
+def test_get_detections_with_no_row_left(detectors, one_instance_per_class):
+    """A frame whose detections all score under the threshold gives no row
+    and no mask, as JAX's does, with or without one instance a class."""
+    jax_model, variables, model, images = detectors
+    K = np.tile(np.eye(3, dtype=np.float32), (2, 1, 1))
+    jdet, jextra = JaxDetector(jax_model, variables).get_detections(
+        JaxObservation(rgb=jnp.asarray(images), K=jnp.asarray(K)),
+        detection_th=1.0, one_instance_per_class=one_instance_per_class,
+    )
+    det, extra = Detector(model, image_size=(H, W)).get_detections(
+        ObservationBatch(rgb=torch.from_numpy(images), K=torch.from_numpy(K)),
+        detection_th=1.0, one_instance_per_class=one_instance_per_class,
+    )
+    assert det.n_rows == jdet.n_rows == 0
+    assert extra["masks"].shape[0] == np.asarray(jextra["masks"]).shape[0] == 0
+
+
+def test_a_frame_is_one_detector_graph_call(detectors):
+    """An FCOS frame is one call of the detector's graph, its NMS and
+    post-processing inside (on the CPU its plain call): the second frame
+    adds one replay and no capture. Its rows are those of the eager
+    `detector_postprocess(model(x))`, bit for bit, in (image, slot) order."""
+    _, _, model, images = detectors
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        ref = td.detector_postprocess(model(x), score_threshold=0.0)
+    th = float(ref["scores"][ref["valid"]].median())
+    valid = (ref["valid"] & (ref["scores"] > th)).numpy()
+    im, slot = np.nonzero(valid)
+    assert 0 < len(im) < valid.size
+    detector = Detector(model, image_size=(H, W))
+    obs = ObservationBatch(rgb=x, K=torch.eye(3).expand(2, 3, 3))
+    detector.get_detections(obs, detection_th=th)
+    before = profiling.counters()
+    det, extra = detector.get_detections(obs, detection_th=th)
+    after = profiling.counters()
+    grown = {k: after.get(f"graphs.detector.{k}", 0) - before.get(f"graphs.detector.{k}", 0)
+             for k in ("replays", "captures")}
+    assert grown == {"replays": 1, "captures": 0}
+    np.testing.assert_array_equal(det.batch_im_ids.numpy(), im)
+    np.testing.assert_array_equal(det.boxes.numpy(), ref["boxes"].numpy()[im, slot])
+    np.testing.assert_array_equal(det.scores.numpy(), ref["scores"].numpy()[im, slot])
+    np.testing.assert_array_equal(det.obj_ids.numpy(), ref["labels"].numpy()[im, slot])
+    np.testing.assert_array_equal(extra["masks"], ref["masks"].numpy()[im, slot])
 
 
 @pytest.mark.parametrize("frame,target", [((480, 640), (240, 320)), ((480, 640), (120, 120)),

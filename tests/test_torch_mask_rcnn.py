@@ -217,7 +217,8 @@ def test_roi_align_plain_version_is_the_references(world, size):
 def test_detector_rows_and_full_frame_masks(world):
     """`Detector.get_detections` on a Mask R-CNN: the rows of the valid
     detections (labels as object ids), masks at the frame's size, one
-    instance a class on request; the run directory round trip
+    instance a class on request, no row over the best score (with one
+    instance a class too); the run directory round trip
     (`save_run_dir` -> `load_detector`) gives the same rows."""
     model, images, out, _, _, _ = world
     K = np.asarray([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]], np.float32)
@@ -234,8 +235,10 @@ def test_detector_rows_and_full_frame_masks(world):
     for b in range(2):
         ids = one.obj_ids.numpy()[one.batch_im_ids.numpy() == b]
         assert len(set(ids.tolist())) == len(ids)
-    high, _ = det.get_detections(obs, detection_th=float(out.scores.max()))
-    assert high.n_rows == 0
+    for one_instance in (False, True):
+        high, extra = det.get_detections(obs, detection_th=float(out.scores.max()),
+                                         one_instance_per_class=one_instance)
+        assert high.n_rows == 0 and extra["masks"].shape[0] == 0
 
 
 def test_detector_nms_settings_of_a_mask_rcnn(world):
